@@ -3,9 +3,11 @@
     python -m bwamem_tpu_torch.cli mem [options] <idxbase> <in1.fq> [in2.fq]
 
 The options are those of ``bwamem_tpu.cli mem`` (the bwa mem option
-table), with ``--device cuda|cpu`` in place of ``--engine``.  ``cuda``
-runs the seeding, SA-walk and extension kernels on the GPU and fails when
-there is none; ``cpu`` runs their plain PyTorch versions.  The mesh,
+table, ``-v 4``/``-v 5`` tracing included), with ``--device cuda|cpu`` in
+place of ``--engine``.  ``cuda`` runs the seeding, SA-walk, extension,
+global-alignment and local-SW kernels on the GPU and fails when there is
+none; ``cpu`` runs their plain PyTorch versions.  BWAMEM_TPU_CHUNK_BP
+sets the chunk size in bases, as in ``bwamem_tpu.cli``.  The mesh,
 table-sharding, multi-host and profiler options are not ported yet and
 are refused.  Every other bwa command runs without JAX in
 ``bwamem_tpu.cli`` already.
@@ -13,6 +15,7 @@ are refused.  Every other bwa command runs without JAX in
 
 import json
 import math
+import os
 import sys
 
 from bwamem_tpu.cli import PACKAGE_VERSION, set_rg
@@ -173,9 +176,11 @@ def main_mem(argv):
     pac = bns.pac
 
     # fork the -t worker pool before CUDA is initialised: a fork after
-    # CUDA init breaks the children (they never touch the device)
+    # CUDA init breaks the children (they never touch the device).  At
+    # -v >= 4 process_seqs bypasses the pool to keep the traces
+    # in-process, so none is made
     pool = None
-    if opt.n_threads > 1:
+    if opt.n_threads > 1 and verbose < 4:
         from bwamem_tpu.core.mt import WorkerPool
         pool = WorkerPool(fm, bns, pac, opt.n_threads,
                           index_prefix=args[0])
@@ -202,7 +207,8 @@ def main_mem(argv):
         def chunk_iter():
             # --shard i/n: this process owns chunks i, i+n, i+2n, ... of
             # the input stream
-            chunk_bp = opt.chunk_size * opt.n_threads
+            chunk_bp = (int(os.environ.get("BWAMEM_TPU_CHUNK_BP", "0"))
+                        or opt.chunk_size * opt.n_threads)
             chunk_no = -1
             while True:
                 reads = reader.read_chunk(chunk_bp)
@@ -236,13 +242,9 @@ def main_mem(argv):
                 out.write(r.sam)
 
         from bwamem_tpu.core.pipeline import process_chunk_stream
-        try:
-            process_chunk_stream(opt, fm, bns, pac, chunk_iter(), pes0,
-                                 rg_id or "", engine, verbose, pool=pool,
-                                 on_start=on_start, emit=emit)
-        except NotImplementedError as ex:
-            sys.stderr.write(f"[E::main_mem] {ex}\n")
-            return 1
+        process_chunk_stream(opt, fm, bns, pac, chunk_iter(), pes0,
+                             rg_id or "", engine, verbose, pool=pool,
+                             on_start=on_start, emit=emit)
     finally:
         if pool is not None:
             pool.close()

@@ -1,11 +1,14 @@
-// Fused left+right banded extension of one seed per thread.
+// Banded extension, one lane per thread: the fused left+right extension
+// of a seed, and the bare ksw_extend2 call.
 //
 // Replaces the TPU kernel bwamem_tpu/ops/pallas_extend.py _call
-// (_make_kernel, via extend_pallas), which bwamem_tpu/ops/ksw.py
-// _extend_lr_core calls up to four times per seed.  One launch here
-// covers the whole of _extend_lr_core: left at w, left retry at 2w, the
-// left decision, right at w, right retry at 2w, the right decision
-// (software/bwamem.c:1120-1176).  The DP is ksw_extend2
+// (_make_kernel, via extend_pallas), which bwamem_tpu/ops/ksw.py calls
+// through two entries.  bm_extend_lr covers the whole of _extend_lr_core,
+// which calls it up to four times per seed: left at w, left retry at 2w,
+// the left decision, right at w, right retry at 2w, the right decision
+// (software/bwamem.c:1120-1176).  bm_extend2 is ksw_extend2_batched, one
+// ksw_extend2 per lane with its own band, end bonus and h0: the traced
+// path yields each attempt on its own.  The DP is ksw_extend2
 // (software/ksw.c:379-477) as in native/ksw.cpp bm_ksw_extend2: affine
 // gaps, band clamp through double, z-drop, end-bonus gscore tracking,
 // later-index-wins row maxima and band narrowing.  The plain PyTorch
@@ -18,7 +21,10 @@
 // thousands of seeds per launch (WAVE_EXT), sequences read straight from
 // the 4-bit-packed rows the host packer writes, the 5x5 scoring matrix in
 // shared memory.  Lanes are size-sorted by the caller, so a warp's
-// threads run rows of similar count.
+// threads run rows of similar count.  bm_extend2 runs at most WAVE (512)
+// lanes a launch, 4 blocks of 128 threads for 132 SMs, unsorted: its
+// launches are latency-bound, and a later version would give a lane a
+// warp (a prefix-max scan across the band) to fill the card.
 #include <cstdint>
 
 #ifdef __CUDACC__
@@ -213,7 +219,39 @@ BM_HD void extend_lr_lane(const ExtArgs& a, const int8_t* mat, int b) {
   a.aw1[b] = aw1;
 }
 
+struct Ext2Args {
+  const int8_t *q, *t;  // packed rows [B, LQ/2] / [B, LT/2]
+  int LT;
+  const int32_t *qlen, *tlen, *w, *end_bonus, *h0;
+  int o_del, e_del, o_ins, e_ins, zdrop;
+  int32_t *best, *qle, *tle, *gtle, *gscore, *max_off;
+};
+
+// ksw_extend2_batched for lane b (bwamem_tpu/ops/ksw.py:96).
+template <int LQ>
+BM_HD void extend2_lane(const Ext2Args& a, const int8_t* mat, int b) {
+  const Ext6 r = ksw_extend2<LQ>(
+      a.q + static_cast<int64_t>(b) * (LQ / 2), a.qlen[b],
+      a.t + static_cast<int64_t>(b) * (a.LT / 2), a.tlen[b], mat, a.o_del,
+      a.e_del, a.o_ins, a.e_ins, a.w[b], a.end_bonus[b], a.zdrop, a.h0[b]);
+  a.best[b] = r.best;
+  a.qle[b] = r.qle;
+  a.tle[b] = r.tle;
+  a.gtle[b] = r.gtle;
+  a.gscore[b] = r.gscore;
+  a.max_off[b] = r.max_off;
+}
+
 #ifdef __CUDACC__
+template <int LQ>
+__global__ void extend2_kernel(Ext2Args a, const int8_t* mat, int B) {
+  __shared__ int8_t smat[25];
+  if (threadIdx.x < 25) smat[threadIdx.x] = mat[threadIdx.x];
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < B) extend2_lane<LQ>(a, smat, b);
+}
+
 template <int LQ>
 __global__ void extend_lr_kernel(ExtArgs a, const int8_t* mat, int B) {
   __shared__ int8_t smat[25];
@@ -274,6 +312,47 @@ extern "C" int bm_extend_lr(
   if (B > 0)
     extend_lr_kernel<128><<<grid, threads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
+        a, static_cast<const int8_t*>(mat), B);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
+#ifdef __CUDACC__
+// mat: device int8[25].  Returns cudaGetLastError(); 1001 for an LQ
+// without an instantiation.
+extern "C" int bm_extend2(int LQ, int LT, int B, const void* q,
+                          const void* t, const void* qlen, const void* tlen,
+                          const void* mat, int o_del, int e_del, int o_ins,
+                          int e_ins, const void* w, const void* end_bonus,
+                          int zdrop, const void* h0, void* best, void* qle,
+                          void* tle, void* gtle, void* gscore, void* max_off,
+                          void* stream) {
+  Ext2Args a;
+  a.q = static_cast<const int8_t*>(q);
+  a.t = static_cast<const int8_t*>(t);
+  a.LT = LT;
+  a.qlen = static_cast<const int32_t*>(qlen);
+  a.tlen = static_cast<const int32_t*>(tlen);
+  a.w = static_cast<const int32_t*>(w);
+  a.end_bonus = static_cast<const int32_t*>(end_bonus);
+  a.h0 = static_cast<const int32_t*>(h0);
+  a.o_del = o_del;
+  a.e_del = e_del;
+  a.o_ins = o_ins;
+  a.e_ins = e_ins;
+  a.zdrop = zdrop;
+  a.best = static_cast<int32_t*>(best);
+  a.qle = static_cast<int32_t*>(qle);
+  a.tle = static_cast<int32_t*>(tle);
+  a.gtle = static_cast<int32_t*>(gtle);
+  a.gscore = static_cast<int32_t*>(gscore);
+  a.max_off = static_cast<int32_t*>(max_off);
+  if (LQ != 128) return 1001;
+  const int threads = 128;
+  const int grid = (B + threads - 1) / threads;
+  if (B > 0)
+    extend2_kernel<128><<<grid, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
         a, static_cast<const int8_t*>(mat), B);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 The kernels live in ``bwamem_tpu_torch/csrc`` as plain-C entry points
 (no PyTorch headers), built with nvcc for ``sm_90a`` into one shared
 library under ``bwamem_tpu_torch/_build`` at first use, keyed by a hash
-of the sources, and loaded with ctypes.  Every pointer and the CUDA
+of the sources, and loaded with ctypes.  Each source compiles in its own
+nvcc process, all started together, and one more links them.  Every pointer and the CUDA
 stream are passed as ``c_void_p``; every entry returns
 ``cudaGetLastError()`` and the caller raises when it is not 0.
 
@@ -24,10 +25,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("smem.cu", "sa.cu", "extend.cu")
+SOURCES = ("smem.cu", "sa.cu", "extend.cu", "global.cu", "align.cu")
 HEADERS = ("fm.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class Kernel:
@@ -51,7 +52,13 @@ SA = Kernel("sa_walk", "bwamem_tpu_torch/csrc/sa.cu",
             "bwamem_tpu/ops/pallas_smem.py:1626")
 EXTEND = Kernel("extend_lr", "bwamem_tpu_torch/csrc/extend.cu",
                 "bwamem_tpu/ops/pallas_extend.py:285")
-KERNELS = (SMEM, SA, EXTEND)
+EXTEND2 = Kernel("extend2", "bwamem_tpu_torch/csrc/extend.cu",
+                 "bwamem_tpu/ops/pallas_extend.py:285")
+GLOBAL2 = Kernel("global2", "bwamem_tpu_torch/csrc/global.cu",
+                 "bwamem_tpu/ops/pallas_global.py:266")
+ALIGN2 = Kernel("align2", "bwamem_tpu_torch/csrc/align.cu",
+                "bwamem_tpu/ops/pallas_align.py:180")
+KERNELS = (SMEM, SA, EXTEND, EXTEND2, GLOBAL2, ALIGN2)
 
 
 def reset_counts() -> None:
@@ -70,6 +77,10 @@ _SIGNATURES = {
     "bm_sa_walk": [_VP, _I64, _I64, _VP, _VP, _I, _I64, _VP, _I, _I, _VP,
                    _VP, _VP],
     "bm_extend_lr": [_I, _I, _I] + [_VP] * 9 + [_I] * 8 + [_VP] * 14,
+    "bm_extend2": [_I, _I, _I] + [_VP] * 5 + [_I] * 4 + [_VP] * 2 + [_I]
+                  + [_VP] * 8,
+    "bm_global2": [_I, _I, _I] + [_VP] * 6 + [_I] * 4 + [_VP] * 7,
+    "bm_align2": [_I, _I, _I, _I] + [_VP] * 6 + [_I] * 5 + [_VP] * 7,
 }
 
 _lib = None
@@ -101,6 +112,35 @@ def build_log() -> str:
     return p.read_text() if p.exists() else ""
 
 
+def _build(so: Path) -> None:
+    """One nvcc per source, all at once, then one link."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                               str(CSRC / s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    log, failed = [], False
+    for s, p in zip(SOURCES, procs):
+        log.append(f"== {s}\n{p.communicate()[0]}")
+        failed |= p.returncode != 0
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                              str(tmp)] + [str(o) for o in objs],
+                             capture_output=True, text=True)
+        log.append(f"== link\n{res.stdout}{res.stderr}")
+        failed = res.returncode != 0
+    for o in objs:
+        o.unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "".join(log))
+    os.replace(tmp, so)
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
@@ -111,16 +151,7 @@ def library() -> ctypes.CDLL:
             return _lib
         so = BUILD_DIR / f"libbwamem_torch_{_digest()}.so"
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [
-                str(CSRC / s) for s in SOURCES]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            (BUILD_DIR / "build.log").write_text(res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError("nvcc failed:\n" + res.stdout
-                                   + res.stderr)
-            os.replace(tmp, so)
+            _build(so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,16 +1,33 @@
 """The PyTorch seeding engine, pluggable into core.pipeline.
 
-Port of bwamem_tpu/ops/engine.py (JaxSeedingEngine) for the native
-flat-array route of ``mem``: per chunk, device seeding (superstep + SA
-walk kernels) -> native chaining -> native packing of every seed's
-extension -> device extension kernel in WAVE_EXT lane groups -> native
-region building.  The host C++ library (native/) is required.
+Port of bwamem_tpu/ops/engine.py (JaxSeedingEngine), with its two
+routes:
 
-Routes that need the generator wave path (``drive_waves`` with the
-extend2/global2/align2 kernels) are not ported yet and raise
-NotImplementedError: ``-v 4`` tracing and chunks richer than 16 seeds
-per read.  Reads longer than the seeding bucket (L=128) take the host
-oracle, as in the JAX engine, and are counted as ``host_routed_reads``.
+- the native flat-array route of ``mem``: per chunk, device seeding
+  (superstep + SA walk kernels) -> native chaining -> native packing of
+  every seed's extension -> device extension kernel in WAVE_EXT lane
+  groups -> native region building;
+- the generator wave path, ``drive_waves``: the shared generators of
+  bwamem_tpu/core yield Smith-Waterman requests (core/swdrive.py), and
+  each round serves the live ones grouped by type, batched launches per
+  type: extend2 and extend_lr (csrc/extend.cu), global2
+  (csrc/global.cu), align2 (csrc/align.cu).  It serves ``-v 4``/``-v 5``
+  tracing (the per-read extension, then the SE and PE finalize of
+  core.pipeline) and chunks richer than 16 seeds per read.
+
+The host C++ library (native/) is required.  Reads longer than the
+seeding bucket (L=128) take the host oracle, as in the JAX engine, and
+are counted as ``host_routed_reads``.  Requests a wave does not take go
+to the scalar oracle (core.swdrive.serve_host) and are counted in
+``kernel_time_by_tag``: ``wave_host_oversize_<type>`` for lanes past the
+kernel's shapes, ``wave_host_tail`` for rounds with fewer than MIN_WAVE
+live requests; ``wave_rounds`` counts the rounds.
+
+The JAX engine's speculative extension cache (ExtCache,
+_speculate_extensions) is not ported: on the routes that reach
+drive_waves it is bypassed (traces) or over its budget (seed-rich
+chunks, the budget being 16 seeds per read), so it never answers a
+request there.
 """
 
 import os
@@ -25,11 +42,44 @@ import torch
 from bwamem_tpu.core import nfinalize
 
 from .fm import DeviceFmIndex
-from .ksw import ksw_extend_lr_batched
+from .ksw import (cigars_from_tracebacks, ksw_extend2_batched,
+                  ksw_extend_lr_batched, ksw_global2_batched)
+from .ksw_align import align2_wave
 from .seeding import BatchedSeeder
 
-_NOT_PORTED = ("the generator wave path (drive_waves with the extend2/"
-               "global2/align2 kernels) is not ported yet; see ROADMAP.md")
+
+def _default_min_wave() -> int:
+    """Below this many live requests a round goes to the scalar oracle:
+    64 with the native C++ oracle (~50 us an extension), 8 with the pure
+    Python one (bwamem_tpu/ops/engine.py:30-39)."""
+    from bwamem_tpu.oracle.ksw import _native
+    return 64 if _native() else 8
+
+
+def _pack4(buf: np.ndarray) -> np.ndarray:
+    """Two bases per byte (values 0..4)."""
+    return buf[:, 0::2] | (buf[:, 1::2] << np.int8(4))
+
+
+def _chains_from_flat(flat, n_reads):
+    """Per-read Chain-object lists from the flat chain arrays (the input
+    of the generator path)."""
+    from bwamem_tpu.core.chain import Chain
+    chain_off, seed_off, s_rbeg, s_qbeg, s_len = flat
+    rb_l, qb_l, ln_l = (np.asarray(s_rbeg).tolist(),
+                        np.asarray(s_qbeg).tolist(),
+                        np.asarray(s_len).tolist())
+    c_off_l = np.asarray(chain_off).tolist()
+    sd_off_l = np.asarray(seed_off).tolist()
+    out = []
+    for i in range(n_reads):
+        lst = []
+        for c in range(c_off_l[i], c_off_l[i + 1]):
+            lo, hi = sd_off_l[c], sd_off_l[c + 1]
+            seeds_c = list(zip(rb_l[lo:hi], qb_l[lo:hi], ln_l[lo:hi]))
+            lst.append(Chain(pos=seeds_c[0][0], seeds=seeds_c))
+        out.append(lst)
+    return out
 
 
 class ChainBatch:
@@ -62,12 +112,19 @@ class TorchSeedingEngine:
         self.fm_host = fm_host
         self.dfm = DeviceFmIndex.from_host(fm_host).to(self.device)
         self.seeder = BatchedSeeder(self.dfm, fm_host, timer=self)
-        wave = int(env("BWAMEM_TPU_WAVE", "512"))
-        self.wave_ext = int(env("BWAMEM_TPU_WAVE_EXT", str(wave * 2)))
+        # lane-group widths of the launches (engine.py:24-46): extend2
+        # and align2 waves, extend_lr groups, global2 waves
+        self.wave = int(env("BWAMEM_TPU_WAVE", "512"))
+        self.wave_ext = int(env("BWAMEM_TPU_WAVE_EXT", str(self.wave * 2)))
+        self.wave_glo = int(env("BWAMEM_TPU_WAVE_GLO", str(self.wave * 2)))
+        self.min_wave = (int(env("BWAMEM_TPU_MIN_WAVE", "0"))
+                         or _default_min_wave())
         self.lt_buckets = tuple(int(x) for x in env(
             "BWAMEM_TPU_LT_BUCKETS", "160,320,544").split(","))
-        # extension shapes of reads up to 128 bp (engine.py:167-168)
+        # extension shapes of reads up to 128 bp (engine.py:167-170); a
+        # global alignment's target is within the band of its query
         self._ext_lq, self._ext_lt = 128, 544
+        self._glo_lq, self._glo_lt = 128, 160
         self._mat = None
         # device-time accounting (fetch-inclusive, per dispatch tag) and
         # the host-route counters
@@ -102,14 +159,15 @@ class TorchSeedingEngine:
                 np.asarray(opt.mat, np.int8)).to(self.device))
         return self._mat[1]
 
-    def chain_batch(self, opt, reads, traces=None,
-                    trace_seeds=False) -> ChainBatch:
+    def chain_batch(self, opt, reads, traces=None, trace_seeds=False):
         """Device seeding + SA, native chaining, for a chunk; returns a
         ChainBatch whose `.flat` covers every read in order.  Reads
         longer than the seeding bucket chain on the host oracle and are
-        spliced in."""
-        if traces is not None:
-            raise NotImplementedError("-v 4 tracing: " + _NOT_PORTED)
+        spliced in.  With `traces` (one TraceLog per read) it returns
+        per-read Chain lists instead, and `trace_seeds` writes the -v 5
+        seed dump (bwamem.c:478-479): every seed of a read in array
+        order, the ones bridging the forward-reverse boundary included,
+        which the native chainer then drops (native/chain.cpp:78)."""
         from bwamem_tpu.core.chain import mem_chain
         from bwamem_tpu.core.pipeline import encode_read
         for r in reads:
@@ -131,6 +189,12 @@ class TorchSeedingEngine:
             iv = self.seeder.interval_arrays(opt, queries)
             rid, s_rb, s_qb, s_ln = self.seeder.seeds_from_arrays(
                 self.fm_host, iv, opt)
+            if trace_seeds and traces is not None:
+                for r, rb, qb, ln in zip(rid.tolist(), s_rb.tolist(),
+                                         s_qb.tolist(), s_ln.tolist()):
+                    traces[dev_idx[r]].append(
+                        "* Found SEED: length=%d,query_beg=%d,ref_beg=%d\n"
+                        % (ln, qb, rb))
             counts = (np.bincount(rid, minlength=len(dev_idx)) if len(rid)
                       else np.zeros(len(dev_idx), np.int64))
             read_off = np.zeros(len(dev_idx) + 1, dtype=np.int64)
@@ -141,6 +205,16 @@ class TorchSeedingEngine:
             if out is None:
                 raise RuntimeError("native chaining failed")
             c_off, sd_off, o_rb, o_qb, o_ln = out
+        if traces is not None:
+            chains = [[] for _ in reads]
+            for bi, lst in enumerate(_chains_from_flat(
+                    (c_off, sd_off, o_rb, o_qb, o_ln), len(dev_idx))):
+                chains[dev_idx[bi]] = lst
+            for i in host_idx:
+                chains[i] = mem_chain(opt, self.fm_host, l_pac,
+                                      reads[i].seq_nt4,
+                                      traces[i] if trace_seeds else None)
+            return chains
         n_chains = np.zeros(len(reads), np.int64)
         n_chains[np.asarray(dev_idx, np.int64)] = np.diff(c_off)
         if not host_idx:
@@ -186,30 +260,45 @@ class TorchSeedingEngine:
     def align_batch(self, opt, fm, bns, pac, reads, traces=None,
                     trace_seeds=False, chains=None):
         """Regions for a chunk: seeding and chaining (or the prefetched
-        result of prefetch_batch), the extension kernel over every seed,
-        native region building."""
-        if traces is not None:
-            raise NotImplementedError("-v 4 tracing: " + _NOT_PORTED)
+        result of prefetch_batch), then the flat route (the extension
+        kernel over every seed, native region building), or, with traces
+        or for a seed-rich chunk, the generators of align1_core_gen
+        through drive_waves (JAX engine.py:419-438)."""
+        from bwamem_tpu.core.pipeline import align1_core_gen
+        prefetched = isinstance(chains, tuple)
         packed = None
-        if isinstance(chains, tuple):      # prefetch_batch output
+        if prefetched:                     # prefetch_batch output
             chains, packed = chains
         if chains is None:
-            chains = self.chain_batch(opt, reads)
-        if packed is None:
-            packed = self._pack_and_dispatch(opt, bns, pac, reads,
-                                             chains.flat)
-        return self._collect_and_regions(opt, bns, pac, reads, chains.flat,
-                                         *packed)
+            chains = self.chain_batch(opt, reads, traces=traces,
+                                      trace_seeds=trace_seeds)
+        if isinstance(chains, ChainBatch):
+            if not prefetched:
+                packed = self._pack_and_dispatch(opt, bns, pac, reads,
+                                                 chains.flat)
+            if packed is not None:
+                return self._collect_and_regions(opt, bns, pac, reads,
+                                                 chains.flat, *packed)
+            chains = _chains_from_flat(chains.flat, len(reads))
+        gens = [align1_core_gen(
+                    opt, fm, bns, pac, r, chains=chains[i],
+                    trace=traces[i] if traces is not None else None)
+                for i, r in enumerate(reads)]
+        return self.drive_waves(opt, gens)
 
     def _pack_and_dispatch(self, opt, bns, pac, reads, flat):
         """Native pack of every seed's extension (oversize lanes served
         by the native scalar twin) and the extension kernel launches in
         WAVE_EXT lane groups, size-sorted and LT-bucketed.  Returns
-        (pk, pend)."""
+        (pk, pend), or None for a chunk with more than 16 seeds per read:
+        most of those seeds are never extended (the chain filter and the
+        containment test drop them), so such a chunk takes the
+        generator path, which extends only what the serial logic asks
+        for (engine.py:449-451)."""
         n_seeds = len(flat[2])
         if n_seeds > 16 * max(len(reads), 1):
-            raise NotImplementedError(
-                "a chunk with more than 16 seeds per read: " + _NOT_PORTED)
+            self._count("seed_rich_chunks")
+            return None
         LQ, LT_max = self._ext_lq, self._ext_lt
         pk = nfinalize.pack_extlr_native(opt, bns.l_pac, pac, reads, flat,
                                          LQ, LT_max)
@@ -290,30 +379,231 @@ class TorchSeedingEngine:
         """The pipelined stage for chunk k+1: seeding, chaining and the
         extension launches, so the device work of the next chunk
         overlaps this chunk's host finalize.  align_batch unpacks the
-        result."""
+        result; for a seed-rich chunk it is (chains, None)."""
         chains = self.chain_batch(opt, reads)
         return chains, self._pack_and_dispatch(opt, bns, pac, reads,
                                                chains.flat)
 
     def warm_shapes(self, opt):
-        """Build the kernels and run every extension LT bucket once on
-        empty lanes, so no build lands inside a served chunk."""
+        """Build the kernels and run every fixed launch shape once on
+        empty lanes (each extension LT bucket, the extend2 and global2
+        waves), so no build lands inside a served chunk."""
         B, LQ = self.wave_ext, self._ext_lq
-        zi = torch.zeros(B, dtype=torch.int32, device=self.device)
-        z6 = torch.zeros(B, dtype=torch.int64, device=self.device)
+        dev = self.device
+        mat = self._mat_dev(opt)
+        gap = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
+
+        def rows(b, width):
+            return torch.full((b, width // 2), 0x44, dtype=torch.int8,
+                              device=dev)
+
+        def lanes(b, dt=torch.int32):
+            return torch.zeros(b, dtype=dt, device=dev)
         outs = []
+        zi, z6 = lanes(B), lanes(B, torch.int64)
         for LT in self.lt_buckets:
-            zq = torch.full((B, LQ // 2), 0x44, dtype=torch.int8,
-                            device=self.device)
-            zt = torch.full((B, LT // 2), 0x44, dtype=torch.int8,
-                            device=self.device)
+            zq, zt = rows(B, LQ), rows(B, LT)
             outs.append(ksw_extend_lr_batched(
-                zq, zt, zi, zi, zq, zt, zi, zi, self._mat_dev(opt),
-                opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w,
+                zq, zt, zi, zi, zq, zt, zi, zi, mat, *gap, opt.w,
                 opt.pen_clip5, opt.pen_clip3, opt.zdrop, zi, zi, z6, z6,
                 zi + 1, zi, LQ=LQ, LT=LT))
+        zi = lanes(self.wave)
+        outs.append(ksw_extend2_batched(
+            rows(self.wave, LQ), rows(self.wave, self._ext_lt), zi, zi, mat,
+            *gap, zi + 1, zi, opt.zdrop, zi, LQ=LQ, LT=self._ext_lt))
+        zi = lanes(self.wave_glo)
+        outs.append(ksw_global2_batched(
+            rows(self.wave_glo, self._glo_lq),
+            rows(self.wave_glo, self._glo_lt), zi + 1, zi, mat, *gap,
+            zi + 1, LQ=self._glo_lq, LT=self._glo_lt))
         for o in outs:
             o[0].cpu()
 
-    def drive_waves(self, opt, gens, cache=None) -> List:
-        raise NotImplementedError(_NOT_PORTED)
+    def drive_waves(self, opt, gens) -> List:
+        """Advance every generator in lock-step (JAX engine.py:730-800):
+        each round gathers the live requests and serves each type with
+        batched launches; a round with fewer than MIN_WAVE requests goes
+        to the scalar oracle.  Returns each generator's return value."""
+        from bwamem_tpu.core.swdrive import serve_host
+        results: List = [None] * len(gens)
+        live = {}
+
+        def advance(i, out):
+            try:
+                live[i] = gens[i].send(out)
+            except StopIteration as e:
+                results[i] = e.value
+
+        serve = {"extend2": self._extend_wave,
+                 "extend_lr": self._extend_lr_wave,
+                 "global2": self._global_wave,
+                 "align2": self._align2_wave}
+        for i in range(len(gens)):
+            advance(i, None)
+        while live:
+            order = list(live)
+            reqs = [live[i] for i in order]
+            live = {}
+            self._count("wave_rounds")
+            outs = [None] * len(reqs)
+            if len(reqs) < self.min_wave:
+                self._count("wave_host_tail", len(reqs))
+                outs = [serve_host(r, opt) for r in reqs]
+            else:
+                by_type = {}
+                for j, r in enumerate(reqs):
+                    by_type.setdefault(r[0], []).append(j)
+                for tag, js in by_type.items():
+                    if tag not in serve:
+                        raise ValueError(f"unknown SW request {tag!r}")
+                    for j, out in zip(js, serve[tag](
+                            opt, [reqs[j] for j in js])):
+                        outs[j] = out
+            for i, out in zip(order, outs):
+                advance(i, out)
+        return results
+
+    def _host_lanes(self, opt, reqs, fits, tag, outs):
+        """Serve the requests that do not fit the kernel's shapes on the
+        scalar oracle, counted; returns the indices of those that do."""
+        from bwamem_tpu.core.swdrive import serve_host
+        dev_idx = []
+        for i, r in enumerate(reqs):
+            if fits(r):
+                dev_idx.append(i)
+            else:
+                outs[i] = serve_host(r, opt)
+        if len(dev_idx) < len(reqs):
+            self._count("wave_host_oversize_" + tag,
+                        len(reqs) - len(dev_idx))
+        return dev_idx
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _fetch_groups(self, pend, tag, outs):
+        """Fetch each launched group and hand every lane its tuple."""
+        for grp, dev_out in pend:
+            res = self._timed(lambda d=dev_out: [t.cpu().numpy() for t in d],
+                              _tag=tag)
+            cols = [r.tolist() for r in res]
+            for bi, i in enumerate(grp):
+                outs[i] = tuple(c[bi] for c in cols)
+
+    def _extend_wave(self, opt, reqs):
+        """ksw_extend2 over ("extend2", qs, rs, w, end_bonus, h0)
+        requests, in groups of WAVE lanes (engine.py:830)."""
+        LQ, LT = self._ext_lq, self._ext_lt
+        outs = [None] * len(reqs)
+        dev_idx = self._host_lanes(
+            opt, reqs, lambda r: len(r[1]) <= LQ and len(r[2]) <= LT,
+            "extend2", outs)
+        T = self._to_dev
+        pend = []   # launch every group before fetching any
+        for lo in range(0, len(dev_idx), self.wave):
+            grp = dev_idx[lo:lo + self.wave]
+            B = len(grp)
+            qb = np.full((B, LQ), 4, np.int8)
+            tb = np.full((B, LT), 4, np.int8)
+            sc = np.zeros((5, B), np.int32)   # qlen, tlen, w, bonus, h0
+            for bi, i in enumerate(grp):
+                _, qs, rs, w, pen, h0 = reqs[i]
+                qb[bi, :len(qs)] = qs
+                tb[bi, :len(rs)] = rs
+                sc[:, bi] = (len(qs), len(rs), w, pen, h0)
+            pend.append((grp, ksw_extend2_batched(
+                T(_pack4(qb)), T(_pack4(tb)), T(sc[0]), T(sc[1]),
+                self._mat_dev(opt), opt.o_del, opt.e_del, opt.o_ins,
+                opt.e_ins, T(sc[2]), T(sc[3]), opt.zdrop, T(sc[4]),
+                LQ=LQ, LT=LT)))
+        self._fetch_groups(pend, "extend2", outs)
+        return outs
+
+    def _extend_lr_wave(self, opt, reqs):
+        """The fused left+right extension over ("extend_lr", qs, rs, qrt,
+        rrt, sc_seed, s_qbeg, s_rbeg, rmax0, l_query, s_len) requests
+        (engine.py:885): lanes size-sorted, groups of WAVE_EXT, each at
+        the smallest LT bucket that holds it."""
+        LQ, LT_max = self._ext_lq, self._ext_lt
+        outs = [None] * len(reqs)
+        dev_idx = self._host_lanes(
+            opt, reqs, lambda r: (len(r[1]) <= LQ and len(r[2]) <= LT_max
+                                  and len(r[3]) <= LQ
+                                  and len(r[4]) <= LT_max),
+            "extend_lr", outs)
+        dev_idx.sort(key=lambda i: max(len(reqs[i][2]), len(reqs[i][4])))
+        T = self._to_dev
+        pend = []
+        for lo in range(0, len(dev_idx), self.wave_ext):
+            grp = dev_idx[lo:lo + self.wave_ext]
+            B = len(grp)
+            LT = next(b for b in self.lt_buckets if b >= max(
+                max(len(reqs[i][2]), len(reqs[i][4])) for i in grp))
+            lqb = np.full((B, LQ), 4, np.int8)
+            ltb = np.full((B, LT), 4, np.int8)
+            rqb = np.full((B, LQ), 4, np.int8)
+            rtb = np.full((B, LT), 4, np.int8)
+            sc = np.zeros((8, B), np.int32)
+            rb = np.zeros((2, B), np.int64)   # s_rbeg, rmax0
+            for bi, i in enumerate(grp):
+                (_, qs, rs, qrt, rrt, sc_seed, s_qbeg, s_rbeg, rmax0,
+                 l_query, s_len) = reqs[i]
+                lqb[bi, :len(qs)] = qs
+                ltb[bi, :len(rs)] = rs
+                rqb[bi, :len(qrt)] = qrt
+                rtb[bi, :len(rrt)] = rrt
+                sc[:, bi] = (len(qs), len(rs), len(qrt), len(rrt), sc_seed,
+                             s_qbeg, l_query, s_len)
+                rb[:, bi] = (s_rbeg, rmax0)
+            pend.append((grp, ksw_extend_lr_batched(
+                T(_pack4(lqb)), T(_pack4(ltb)), T(sc[0]), T(sc[1]),
+                T(_pack4(rqb)), T(_pack4(rtb)), T(sc[2]), T(sc[3]),
+                self._mat_dev(opt), opt.o_del, opt.e_del, opt.o_ins,
+                opt.e_ins, opt.w, opt.pen_clip5, opt.pen_clip3, opt.zdrop,
+                T(sc[4]), T(sc[5]), T(rb[0]), T(rb[1]), T(sc[6]), T(sc[7]),
+                LQ=LQ, LT=LT)))
+        self._fetch_groups(pend, "extend_lr", outs)
+        return outs
+
+    def _global_wave(self, opt, reqs):
+        """ksw_global2 with the traceback on the device over ("global2",
+        qs, rs, w) requests, in groups of WAVE_GLO lanes (engine.py:964);
+        the host turns each traceback into its CIGAR."""
+        LQ, LT = self._glo_lq, self._glo_lt
+        outs = [None] * len(reqs)
+        dev_idx = self._host_lanes(
+            opt, reqs, lambda r: 0 < len(r[1]) <= LQ and 0 < len(r[2]) <= LT,
+            "global2", outs)
+        T = self._to_dev
+        pend = []
+        for lo in range(0, len(dev_idx), self.wave_glo):
+            grp = dev_idx[lo:lo + self.wave_glo]
+            B = len(grp)
+            qb = np.full((B, LQ), 4, np.int8)
+            tb = np.full((B, LT), 4, np.int8)
+            sc = np.zeros((3, B), np.int32)   # qlen, tlen, w
+            for bi, i in enumerate(grp):
+                _, qs, rs, w = reqs[i]
+                qb[bi, :len(qs)] = qs
+                tb[bi, :len(rs)] = rs
+                sc[:, bi] = (len(qs), len(rs), w)
+            pend.append((grp, ksw_global2_batched(
+                T(_pack4(qb)), T(_pack4(tb)), T(sc[0]), T(sc[1]),
+                self._mat_dev(opt), opt.o_del, opt.e_del, opt.o_ins,
+                opt.e_ins, T(sc[2]), LQ=LQ, LT=LT)))
+        for grp, dev_out in pend:
+            score, ops, n_ops, ri, rk = self._timed(
+                lambda d=dev_out: [t.cpu().numpy() for t in d],
+                _tag="global2")
+            cigars = cigars_from_tracebacks(ops, n_ops, ri, rk,
+                                            range(len(grp)))
+            for bi, i in enumerate(grp):
+                outs[i] = (int(score[bi]), cigars[bi])
+        return outs
+
+    def _align2_wave(self, opt, reqs):
+        """Mate-rescue local SW over ("align2", qs, rs, xtra) requests, in
+        groups of WAVE lanes (ops/ksw_align.py align2_wave)."""
+        return align2_wave(opt, reqs, self.wave, self._mat_dev(opt),
+                           timed=lambda fn: self._timed(fn, _tag="align2"),
+                           count=self._count)

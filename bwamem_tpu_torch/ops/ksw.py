@@ -1,21 +1,27 @@
-"""Batched banded extension (ksw_extend2) and the fused left+right seed
-extension, in PyTorch.
+"""Batched banded extension (ksw_extend2), the fused left+right seed
+extension and banded global alignment with traceback, in PyTorch.
 
-Port of the extension part of bwamem_tpu/ops/ksw.py.
-``ksw_extend_lr_batched`` extends every seed left and right with the
-x2 band-doubling retries (software/bwamem.c:1120-1176): on CUDA tensors
-it launches the fused extension kernel (csrc/extend.cu), one thread per
-seed for the whole left+right logic; on CPU tensors it runs the plain
-version below, the JAX package's lock-step DP (each row vectorized over
-the query and over lanes, the F dependency resolved by a prefix max)
-with a Python loop over rows.
+Port of bwamem_tpu/ops/ksw.py.  ``ksw_extend_lr_batched`` extends every
+seed left and right with the x2 band-doubling retries
+(software/bwamem.c:1120-1176); ``ksw_extend2_batched`` is one
+ksw_extend2 per lane; ``ksw_global2_batched`` is ksw_global2
+(software/ksw.c:501-585) with the traceback on the device.  On CUDA
+tensors each launches its kernel (csrc/extend.cu, csrc/global.cu), one
+thread per lane; on CPU tensors each runs its plain version below, the
+JAX package's lock-step DP (each row vectorized over the query and over
+lanes, the F dependency resolved by a prefix max) with a Python loop
+over rows.
 """
 
+import numpy as np
 import torch
 
 from . import _kernels
 
 NEG = -0x40000000
+# out-of-band fill of the global DP's prefix scan: below every in-band
+# value (bwamem_tpu/ops/ksw.py NEG2)
+NEG2 = -0x60000000
 
 
 def unpack4(p: torch.Tensor, L: int) -> torch.Tensor:
@@ -291,3 +297,276 @@ def ksw_extend_lr_batched(lq, lt, llq, llt, rq, rt, rlq, rlt, mat,
     return fn(lq, lt, llq, llt, rq, rt, rlq, rlt, mat, o_del, e_del,
               o_ins, e_ins, w0, pc5, pc3, zdrop, sc_seed, s_qbeg, s_rbeg,
               rmax0, l_query, s_len, LQ, LT)
+
+
+def extend2_plain(query, target, qlen, tlen, mat, o_del: int, e_del: int,
+                  o_ins: int, e_ins: int, w, end_bonus, zdrop: int, h0,
+                  LQ: int, LT: int):
+    """Plain version of ksw_extend2_batched over packed rows."""
+    out = extend_plain(unpack4(query, LQ), unpack4(target, LT), qlen, tlen,
+                       mat, o_del, e_del, o_ins, e_ins, w, end_bonus, zdrop,
+                       h0, LQ, LT)
+    return tuple(t.to(torch.int32) for t in out)
+
+
+def _check_rows(LQ: int, LT: int, q, t, qlen, tlen, what: str) -> None:
+    B = q.shape[0]
+    for name, x, width in (("query", q, LQ), ("target", t, LT)):
+        if x.shape != (B, width // 2) or x.dtype != torch.int8:
+            raise ValueError(f"{what}: {name} must be packed int8 "
+                             f"({B}, {width // 2})")
+    if bool(((qlen > LQ) | (tlen > LT)).any()):
+        raise ValueError(f"{what}: a query exceeds LQ={LQ} or a target "
+                         f"LT={LT}")
+
+
+def _lane_args(dev, *pairs):
+    return [t.to(device=dev, dtype=dt).contiguous() for t, dt in pairs]
+
+
+def extend2_cuda(query, target, qlen, tlen, mat, o_del: int, e_del: int,
+                 o_ins: int, e_ins: int, w, end_bonus, zdrop: int, h0,
+                 LQ: int, LT: int):
+    """Launch the bare extension kernel (csrc/extend.cu bm_extend2)."""
+    if LQ not in _EXT_LQ:
+        raise ValueError(f"the extension kernel is built for LQ in "
+                         f"{_EXT_LQ}, got {LQ}")
+    _check_rows(LQ, LT, query, target, qlen, tlen, "extend2")
+    B = query.shape[0]
+    dev = query.device
+    i32 = torch.int32
+    q, t, ql, tl, m, wv, eb, hv = _lane_args(
+        dev, (query, torch.int8), (target, torch.int8), (qlen, i32),
+        (tlen, i32), (mat.reshape(-1), torch.int8), (w, i32),
+        (end_bonus, i32), (h0, i32))
+    outs = [torch.empty(B, dtype=i32, device=dev) for _ in range(6)]
+    if B == 0:
+        return tuple(outs)
+    lib = _kernels.library()
+    _kernels.EXTEND2.count()
+    rc = lib.bm_extend2(LQ, LT, B, q.data_ptr(), t.data_ptr(),
+                        ql.data_ptr(), tl.data_ptr(), m.data_ptr(), o_del,
+                        e_del, o_ins, e_ins, wv.data_ptr(), eb.data_ptr(),
+                        zdrop, hv.data_ptr(),
+                        *(o.data_ptr() for o in outs),
+                        _kernels.stream_of(outs[0]))
+    _kernels.check(rc, "extend2")
+    return tuple(outs)
+
+
+def ksw_extend2_batched(query, target, qlen, tlen, mat, o_del: int,
+                        e_del: int, o_ins: int, e_ins: int, w, end_bonus,
+                        zdrop: int, h0, LQ: int, LT: int):
+    """One ksw_extend2 per lane (bwamem_tpu/ops/ksw.py ksw_extend2_batched,
+    packed=True): query [B, LQ/2] / target [B, LT/2] packed rows, per-lane
+    qlen, tlen, band w, end_bonus and h0.  Returns (best, qle, tle, gtle,
+    gscore, max_off), int32[B].  The kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    fn = extend2_cuda if query.is_cuda else extend2_plain
+    return fn(query, target, qlen, tlen, mat, o_del, e_del, o_ins, e_ins, w,
+              end_bonus, zdrop, h0, LQ, LT)
+
+
+def global_plain(query, target, qlen, tlen, mat, o_del: int, e_del: int,
+                 o_ins: int, e_ins: int, w_in, LQ: int, LT: int):
+    """Plain ksw_global2_batched over packed rows: the XLA row loop of
+    bwamem_tpu/ops/ksw.py:369-490, then the traceback vectorized over
+    lanes, one step per iteration."""
+    B = query.shape[0]
+    dev = query.device
+    i64 = torch.int64
+    query, target = unpack4(query, LQ), unpack4(target, LT)
+    qlen, tlen, w = qlen.to(i64), tlen.to(i64), w_in.to(i64)
+    oe_del = o_del + e_del
+    oe_ins = o_ins + e_ins
+    mat = mat.to(i64).reshape(-1)
+    jv = torch.arange(LQ + 1, device=dev).unsqueeze(0)
+    jq = torch.arange(LQ, device=dev).unsqueeze(0)
+    col = lambda v: v.unsqueeze(1)  # noqa: E731
+    neg = torch.full((), NEG, dtype=i64, device=dev)
+
+    # init (ksw.c:520-526)
+    eh_h = torch.where((jv >= 1) & (jv <= col(torch.minimum(qlen, w))),
+                       -(o_ins + e_ins * jv), neg)
+    eh_h[:, 0] = 0
+    eh_e = torch.full((B, LQ + 1), NEG, dtype=i64, device=dev)
+    z = torch.zeros(B, LT, LQ, dtype=torch.uint8, device=dev)
+    n_rows = int(tlen.max()) if B else 0
+    for i in range(min(n_rows, LT)):
+        run = i < tlen
+        beg = (i - w).clamp(min=0)
+        end = torch.minimum(i + w + 1, qlen)
+        h1 = torch.where(beg == 0, -(o_del + e_del * (i + 1)), neg)
+        degen = end <= beg
+        do = run & ~degen
+        qp = mat[col(target[:, i]) * 5 + query]                  # [B, LQ]
+        band = (jq >= col(beg)) & (jq < col(end))
+        e = eh_e[:, :LQ]
+        mm = torch.where(band, eh_h[:, :LQ] + qp, neg)
+        a_vec = torch.where(band, mm + jq * e_ins, NEG2)
+        cm = a_vec.cummax(1).values
+        cm_prev = torch.cat([torch.full((B, 1), NEG2, dtype=i64, device=dev),
+                             cm[:, :-1]], dim=1)
+        # the decayed band-edge term decides the direction flags
+        f = torch.maximum(cm_prev - oe_ins - (jq - 1) * e_ins,
+                          NEG - (jq - col(beg)) * e_ins)
+        f = torch.where(jq == col(beg), neg, f)
+        d = torch.where(mm >= e, 0, 1)
+        h = torch.maximum(mm, e)
+        d = torch.where(h >= f, d, 2)
+        h = torch.maximum(h, f)
+        e2 = e - e_del
+        t_ = mm - oe_del
+        d = d | torch.where(e2 > t_, 1 << 2, 0)
+        new_e = torch.maximum(e2, t_)
+        d = d | torch.where(f - e_ins > mm - oe_ins, 2 << 4, 0)
+        z[:, i, :] = torch.where(band & col(do), d, 0).to(torch.uint8)
+
+        at_end = jv == col(end)
+        eh_e_new = torch.cat([torch.where(band, new_e, e), eh_e[:, LQ:]], 1)
+        eh_e_new = torch.where(at_end, neg, eh_e_new)
+        h_shift = torch.cat([torch.zeros(B, 1, dtype=i64, device=dev), h], 1)
+        store = (jv >= col(beg) + 1) & (jv <= col(end))
+        eh_h_new = torch.where(store, h_shift, eh_h)
+        eh_h_new = torch.where(jv == col(beg), col(h1), eh_h_new)
+        # degenerate rows only store eh_h[end] = h1, eh_e[end] = NEG
+        eh_h_deg = torch.where(at_end, col(h1), eh_h)
+        eh_e_deg = torch.where(at_end, neg, eh_e)
+        deg = col(run & degen)
+        eh_h = torch.where(col(do), eh_h_new,
+                           torch.where(deg, eh_h_deg, eh_h))
+        eh_e = torch.where(col(do), eh_e_new,
+                           torch.where(deg, eh_e_deg, eh_e))
+    score = eh_h.gather(1, col(qlen))[:, 0]
+
+    # traceback (ksw.c:570-584)
+    MAXOPS = LT + LQ
+    ops = torch.zeros(B, MAXOPS + 1, dtype=torch.uint8, device=dev)
+    i = tlen - 1
+    k = torch.minimum(i + w + 1, qlen) - 1
+    which = torch.zeros_like(i)
+    n = torch.zeros_like(i)
+    done = (i < 0) | (k < 0)
+    lanes = torch.arange(B, device=dev)
+    while not bool(done.all()):
+        act = ~done
+        dcode = z[lanes, i.clamp(0, LT - 1), k.clamp(0, LQ - 1)].to(i64)
+        which_new = (dcode >> (which << 1)) & 3
+        op = torch.where(which_new == 0, 0, torch.where(which_new == 1, 2, 1))
+        ops[lanes, torch.where(act, n, MAXOPS)] = op.to(torch.uint8)
+        i = torch.where(act, i - (which_new != 2).to(i64), i)
+        k = torch.where(act, k - (which_new != 1).to(i64), k)
+        which = torch.where(act, which_new, which)
+        n = n + act.to(i64)
+        done = done | (i < 0) | (k < 0)
+    i32 = torch.int32
+    return (score.to(i32), ops[:, :MAXOPS].contiguous(), n.to(i32),
+            i.to(i32), k.to(i32))
+
+
+_GLO_LQ = (128,)   # LQ values the global kernel is instantiated for
+
+
+def global_cuda(query, target, qlen, tlen, mat, o_del: int, e_del: int,
+                o_ins: int, e_ins: int, w, LQ: int, LT: int):
+    """Launch the global-alignment kernel (csrc/global.cu bm_global2); the
+    direction scratch [B, LT, LQ] is allocated here and not cleared: the
+    kernel writes every cell of each row it visits."""
+    if LQ not in _GLO_LQ:
+        raise ValueError(f"the global kernel is built for LQ in {_GLO_LQ}, "
+                         f"got {LQ}")
+    _check_rows(LQ, LT, query, target, qlen, tlen, "global2")
+    B = query.shape[0]
+    dev = query.device
+    i32 = torch.int32
+    q, t, ql, tl, wv, m = _lane_args(
+        dev, (query, torch.int8), (target, torch.int8), (qlen, i32),
+        (tlen, i32), (w, i32), (mat.reshape(-1), torch.int8))
+    score, n_ops, rem_i, rem_k = (torch.empty(B, dtype=i32, device=dev)
+                                  for _ in range(4))
+    ops = torch.empty(B, LT + LQ, dtype=torch.uint8, device=dev)
+    if B == 0:
+        return score, ops, n_ops, rem_i, rem_k
+    z = torch.empty(B, LT, LQ, dtype=torch.uint8, device=dev)
+    lib = _kernels.library()
+    _kernels.GLOBAL2.count()
+    rc = lib.bm_global2(LQ, LT, B, q.data_ptr(), t.data_ptr(),
+                        ql.data_ptr(), tl.data_ptr(), wv.data_ptr(),
+                        m.data_ptr(), o_del, e_del, o_ins, e_ins,
+                        z.data_ptr(), score.data_ptr(), ops.data_ptr(),
+                        n_ops.data_ptr(), rem_i.data_ptr(), rem_k.data_ptr(),
+                        _kernels.stream_of(score))
+    _kernels.check(rc, "global2")
+    return score, ops, n_ops, rem_i, rem_k
+
+
+def ksw_global2_batched(query, target, qlen, tlen, mat, o_del: int,
+                        e_del: int, o_ins: int, e_ins: int, w, LQ: int,
+                        LT: int):
+    """Banded global alignment with the traceback on the device
+    (bwamem_tpu/ops/ksw.py ksw_global2_batched, packed=True): query
+    [B, LQ/2] / target [B, LT/2] packed rows, per-lane qlen, tlen and band
+    w.  Returns (score int32[B], ops uint8[B, LT+LQ] in reverse order
+    (0=M 1=I 2=D), n_ops, rem_i, rem_k int32[B]).  The kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    fn = global_cuda if query.is_cuda else global_plain
+    return fn(query, target, qlen, tlen, mat, o_del, e_del, o_ins, e_ins, w,
+              LQ, LT)
+
+
+def cigar_from_traceback(ops_row, n: int, rem_i: int, rem_k: int) -> list:
+    """The BAM cigar of one traceback: append the trailing deletion and
+    insertion runs (ksw.c:580-581), reverse, run-length encode
+    (bwamem_tpu/ops/ksw.py:33)."""
+    seq = list(ops_row[:n])
+    if rem_i >= 0:
+        seq.extend([2] * (rem_i + 1))
+    if rem_k >= 0:
+        seq.extend([1] * (rem_k + 1))
+    seq.reverse()
+    cigar = []
+    for op in seq:
+        if cigar and (cigar[-1] & 0xF) == op:
+            cigar[-1] += 16
+        else:
+            cigar.append(16 | int(op))
+    return cigar
+
+
+def cigars_from_tracebacks(ops: np.ndarray, n_ops: np.ndarray,
+                           rem_i: np.ndarray, rem_k: np.ndarray,
+                           rows) -> list:
+    """cigar_from_traceback over a whole wave, as one run-length pass over
+    every lane's op sequence with sentinels between lanes
+    (bwamem_tpu/ops/ksw.py:52)."""
+    segs = []
+    bounds = [0]
+    for bi in rows:
+        n = int(n_ops[bi])
+        ri, rk = int(rem_i[bi]), int(rem_k[bi])
+        parts = [ops[bi, :n]]
+        if ri >= 0:
+            parts.append(np.full(ri + 1, 2, np.uint8))
+        if rk >= 0:
+            parts.append(np.full(rk + 1, 1, np.uint8))
+        seq = (np.concatenate(parts) if len(parts) > 1 else parts[0])[::-1]
+        segs.append(seq)
+        bounds.append(bounds[-1] + len(seq) + 1)   # +1: the sentinel
+    if not segs:
+        return []
+    total = bounds[-1]
+    flat = np.full(total, 255, np.uint8)    # 255: a sentinel, not an op
+    for seq, lo in zip(segs, bounds[:-1]):
+        flat[lo:lo + len(seq)] = seq
+    brk = np.nonzero(np.diff(flat.astype(np.int16)))[0]
+    starts = np.concatenate([[0], brk + 1])
+    lens = np.diff(np.concatenate([starts, [total]]))
+    vals = flat[starts]
+    keep = vals != 255
+    starts, lens, vals = starts[keep], lens[keep], vals[keep]
+    lane_of = np.searchsorted(np.asarray(bounds), starts, side="right") - 1
+    packed = (lens.astype(np.int64) << 4) | vals
+    out = [[] for _ in segs]
+    for ln, pk in zip(lane_of, packed):
+        out[ln].append(int(pk))
+    return out

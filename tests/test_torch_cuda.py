@@ -154,4 +154,106 @@ def test_mem_cuda_matches_golden(cuda, data_dir, flags, reads, golden,
     with open(os.path.join(data_dir, golden)) as f:
         want = [ln for ln in f.read().split("\n") if not ln.startswith("@PG")]
     assert out == want
-    assert all(k.launches > 0 for k in _kernels.KERNELS)
+    assert all(k.launches > 0 for k in (_kernels.SMEM, _kernels.SA,
+                                         _kernels.EXTEND))
+
+
+def _sw_lanes(seed, n, lq, lt):
+    """n query/target pairs, half of them a mutated copy (with an indel)
+    of the query in the target."""
+    rng = np.random.default_rng(seed)
+    qb = np.full((n, lq), 4, np.int8)
+    tb = np.full((n, lt), 4, np.int8)
+    qlen = rng.integers(1, lq + 1, n).astype(np.int32)
+    tlen = np.minimum(qlen + rng.integers(-8, lt, n), lt).clip(1) \
+        .astype(np.int32)
+    for b in range(n):
+        q = rng.integers(0, 4, qlen[b]).astype(np.int8)
+        t = rng.integers(0, 5, tlen[b]).astype(np.int8)
+        if b % 2 == 0:
+            c = np.concatenate([q[:qlen[b] // 2], [int(rng.integers(4))],
+                                q[qlen[b] // 2:]])[:tlen[b]]
+            t[:len(c)] = c
+        qb[b, :qlen[b]], tb[b, :tlen[b]] = q, t
+    return qb, tb, qlen, tlen, rng
+
+
+def _pk(a):
+    return a[:, 0::2] | (a[:, 1::2] << np.int8(4))
+
+
+def test_extend2_kernel_matches_plain(engine):
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.ksw import extend2_cuda, extend2_plain
+    eng, _ = engine
+    qb, tb, qlen, tlen, rng = _sw_lanes(1, 512, 128, 544)
+    T = lambda a: torch.from_numpy(a).to(eng.device)  # noqa: E731
+    for zdrop in (100, 5):
+        args = (T(_pk(qb)), T(_pk(tb)), T(qlen), T(tlen),
+                eng._mat_dev(_opt()), 6, 1, 6, 1,
+                T(rng.choice([100, 13, 3], 512).astype(np.int32)),
+                T(rng.choice([5, 10], 512).astype(np.int32)), zdrop,
+                T(rng.integers(1, 120, 512).astype(np.int32)), 128, 544)
+        n0 = _kernels.EXTEND2.launches
+        for a, b in zip(extend2_cuda(*args), extend2_plain(*args)):
+            assert torch.equal(a, b)
+        assert _kernels.EXTEND2.launches == n0 + 1
+
+
+def test_global2_kernel_matches_plain(engine):
+    from bwamem_tpu_torch.ops.ksw import global_cuda, global_plain
+    eng, _ = engine
+    qb, tb, qlen, tlen, rng = _sw_lanes(2, 1024, 128, 160)
+    tlen = np.minimum(tlen, qlen + 20).astype(np.int32)
+    T = lambda a: torch.from_numpy(a).to(eng.device)  # noqa: E731
+    for w in (rng.integers(1, 12, 1024), rng.integers(20, 200, 1024)):
+        args = (T(_pk(qb)), T(_pk(tb)), T(qlen), T(tlen),
+                eng._mat_dev(_opt()), 6, 1, 6, 1, T(w.astype(np.int32)),
+                128, 160)
+        k, p = global_cuda(*args), global_plain(*args)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("size", [1, 2])
+def test_align2_kernel_matches_plain(engine, size):
+    from bwamem_tpu_torch.ops.ksw_align import align_cuda, align_plain
+    eng, _ = engine
+    qb, tb, qlen, tlen, rng = _sw_lanes(3 + size, 512, 128, 544)
+    endsc = np.where(rng.random(512) < 0.3, rng.integers(15, 60, 512),
+                     0x10000).astype(np.int32)
+    T = lambda a: torch.from_numpy(a).to(eng.device)  # noqa: E731
+    mat = eng._mat_dev(_opt())
+    shift = -int(mat.min()) if size == 1 else 0
+    args = (T(qb), T(tb), T(qlen), T(tlen), mat, 6, 1, 6, 1, T(endsc),
+            shift, size, 128, 544)
+    for a, b in zip(align_cuda(*args), align_plain(*args)):
+        assert torch.equal(a, b)
+
+
+def _opt():
+    from bwamem_tpu.config import MemOptions, fill_scmat
+    opt = MemOptions()
+    opt.mat = fill_scmat(opt.a, opt.b)
+    return opt
+
+
+@pytest.mark.parametrize("flags,reads,golden", [
+    (["-v", "4"], ["reads_se.fq"], "golden_se_v4.txt"),
+    (["-v", "4"], ["reads_1.fq", "reads_2.fq"], "golden_pe_v4.txt"),
+], ids=["se_v4", "pe_v4"])
+def test_mem_cuda_trace_matches_golden(cuda, data_dir, flags, reads, golden,
+                                       capsys):
+    """The -v 4 traces through the generator wave path on the card."""
+    from bwamem_tpu_torch import cli
+    from bwamem_tpu_torch.ops import _kernels
+    _kernels.reset_counts()
+    assert cli.main_mem(["--device", "cuda"] + flags + [
+        os.path.join(data_dir, "genome.fa")]
+        + [os.path.join(data_dir, r) for r in reads]) == 0
+    out = [ln for ln in capsys.readouterr().out.split("\n")
+           if not ln.startswith("@PG")]
+    with open(os.path.join(data_dir, golden)) as f:
+        want = [ln for ln in f.read().split("\n") if not ln.startswith("@PG")]
+    assert out == want
+    assert _kernels.EXTEND2.launches > 0 and _kernels.GLOBAL2.launches > 0

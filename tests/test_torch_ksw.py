@@ -139,3 +139,108 @@ def test_extend_lr_matches_jax(data_dir, case, w0, zdrop):
               for k in ("sc", "qb", "rb", "rmax0", "lquery", "slen")),
             LQ=LQ, LT=LT)
         assert any(not torch.equal(a, b) for a, b in zip(got, nz))
+
+
+def _pairs(seed, n, lq, lt, tlen_near_qlen=False):
+    """n query/target base pairs of random lengths: even lanes near-
+    matching (the target a mutated copy of the query, with an indel),
+    odd lanes random."""
+    rng = np.random.default_rng(seed)
+    qb = np.full((n, lq), 4, np.int8)
+    tb = np.full((n, lt), 4, np.int8)
+    qlen = np.zeros(n, np.int32)
+    tlen = np.zeros(n, np.int32)
+    for b in range(n):
+        ql = int(rng.integers(1, lq + 1))
+        tl = (max(1, min(lt, ql + int(rng.integers(-8, 9))))
+              if tlen_near_qlen else int(rng.integers(1, lt + 1)))
+        q = rng.integers(0, 4, ql).astype(np.int8)
+        if b % 2 == 0:
+            t = np.concatenate([q[:ql // 2],
+                                rng.integers(0, 4, int(rng.integers(0, 4))),
+                                q[ql // 2:],
+                                rng.integers(0, 4, lt)]).astype(np.int8)[:tl]
+            mut = rng.random(tl) < 0.05
+            t[mut] = rng.integers(0, 5, int(mut.sum()))
+        else:
+            t = rng.integers(0, 5, tl).astype(np.int8)
+        qb[b, :ql], tb[b, :tl] = q, t
+        qlen[b], tlen[b] = ql, tl
+    return qb, tb, qlen, tlen, rng
+
+
+def _pk(a):
+    return a[:, 0::2] | (a[:, 1::2] << np.int8(4))
+
+
+@pytest.mark.parametrize("zdrop", [100, 5])
+def test_extend2_matches_jax(zdrop):
+    """Bare ksw_extend2_batched: per-lane band, end bonus and h0."""
+    from bwamem_tpu.config import fill_scmat
+    from bwamem_tpu.ops.ksw import ksw_extend2_batched as jax_e2
+    from bwamem_tpu_torch.ops.ksw import ksw_extend2_batched
+    qb, tb, qlen, tlen, rng = _pairs(zdrop, B, LQ, LT)
+    w = rng.choice([100, 13, 3], B).astype(np.int32)
+    eb = rng.choice([5, 10], B).astype(np.int32)
+    h0 = rng.integers(1, 120, B).astype(np.int32)
+    mat = np.asarray(fill_scmat(1, 4), np.int32)
+    want = jax_e2(jnp.asarray(_pk(qb)), jnp.asarray(_pk(tb)),
+                  jnp.asarray(qlen), jnp.asarray(tlen), jnp.asarray(mat),
+                  6, 1, 6, 1, jnp.asarray(w), jnp.asarray(eb), zdrop,
+                  jnp.asarray(h0), LQ=LQ, LT=LT, packed=True)
+    T = torch.from_numpy
+    got = ksw_extend2_batched(T(_pk(qb)), T(_pk(tb)), T(qlen), T(tlen),
+                              T(mat.astype(np.int8)), 6, 1, 6, 1, T(w),
+                              T(eb), zdrop, T(h0), LQ=LQ, LT=LT)
+    for name, g, wv in zip(("best", "qle", "tle", "gtle", "gscore",
+                            "max_off"), got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wv),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["narrow", "wide"])
+def test_global2_matches_jax(case):
+    """ksw_global2_batched (its XLA path on the CPU, which
+    tests/test_pallas_global.py holds equal to the TPU kernel): every
+    output, the ops up to n_ops, and the CIGARs built from them."""
+    from bwamem_tpu.config import fill_scmat
+    from bwamem_tpu.ops import ksw as jksw
+    from bwamem_tpu_torch.ops import ksw as tksw
+    GLQ, GLT, GB = 128, 160, 48
+    qb, tb, qlen, tlen, rng = _pairs(7 if case == "narrow" else 8, GB, GLQ,
+                                     GLT, tlen_near_qlen=True)
+    if case == "narrow":      # bands narrower than the length difference
+        w = rng.integers(1, 12, GB).astype(np.int32)
+    else:
+        w = rng.integers(20, 200, GB).astype(np.int32)
+    qlen[0], tlen[1] = GLQ, GLT   # a full query, a full target
+    mat = np.asarray(fill_scmat(1, 4), np.int32)
+    want = [np.asarray(x) for x in jksw.ksw_global2_batched(
+        jnp.asarray(_pk(qb)), jnp.asarray(_pk(tb)), jnp.asarray(qlen),
+        jnp.asarray(tlen), jnp.asarray(mat), 6, 1, 6, 1, jnp.asarray(w),
+        LQ=GLQ, LT=GLT, packed=True)]
+    T = torch.from_numpy
+    got = [x.numpy() for x in tksw.ksw_global2_batched(
+        T(_pk(qb)), T(_pk(tb)), T(qlen), T(tlen), T(mat.astype(np.int8)),
+        6, 1, 6, 1, T(w), LQ=GLQ, LT=GLT)]
+    for name, g, wv in zip(("score", "ops", "n_ops", "rem_i", "rem_k"),
+                           got, want):
+        if name != "ops":
+            np.testing.assert_array_equal(g, wv, err_msg=name)
+    n = want[2]
+    for b in range(GB):
+        np.testing.assert_array_equal(got[1][b, :n[b]], want[1][b, :n[b]],
+                                      err_msg=f"ops[{b}]")
+    assert (got[1].shape == want[1].shape
+            and got[1].dtype == want[1].dtype == np.uint8)
+    rows = range(GB)
+    assert (tksw.cigars_from_tracebacks(*got[1:], rows)
+            == jksw.cigars_from_tracebacks(*want[1:], rows))
+    assert ([tksw.cigar_from_traceback(got[1][b], got[2][b], got[3][b],
+                                       got[4][b]) for b in rows]
+            == [jksw.cigar_from_traceback(want[1][b], want[2][b],
+                                          want[3][b], want[4][b])
+                for b in rows])
+    if case == "narrow":      # some walks leave through a matrix edge
+        assert ((want[3] >= 0) | (want[4] >= 0)).any()

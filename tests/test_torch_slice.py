@@ -1,13 +1,16 @@
 """The port's `mem` end to end on the CPU (bwamem_tpu_torch.cli --device
-cpu, the kernels' plain versions): byte-identical to the goldens and to
-the JAX engine; the package imports no JAX; the routes not ported yet
-refuse instead of serving quietly."""
+cpu, the kernels' plain versions): byte-identical to the goldens (the
+-v 4/-v 5 traces included), to the JAX engine and to the host engine (a
+seed-rich chunk, a set chunk size); the package imports no JAX; the
+options not ported yet refuse instead of serving quietly."""
 
 import io
+import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,17 +27,26 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def run_mem(module, args):
-    """SAM lines (without @PG) and the return code of <module>.main_mem."""
+def run_mem(module, args, stderr=None):
+    """SAM lines (without @PG) and the return code of <module>.main_mem;
+    `stderr`, a StringIO, takes what it writes there."""
     out = io.StringIO()
-    old = sys.stdout
+    old = sys.stdout, sys.stderr
     sys.stdout = out
+    if stderr is not None:
+        sys.stderr = stderr
     try:
         ret = module.main_mem(args)
     finally:
-        sys.stdout = old
+        sys.stdout, sys.stderr = old
     return ret, [ln for ln in out.getvalue().split("\n")
                  if not ln.startswith("@PG")]
+
+
+def device_stats(stderr_text):
+    tag = "[M::main_mem] device stats: "
+    return next(json.loads(ln[len(tag):]) for ln in stderr_text.splitlines()
+                if ln.startswith(tag))
 
 
 def load_golden(path):
@@ -91,31 +103,108 @@ def test_package_imports_no_jax():
 
 
 def test_unported_routes_refuse(data_dir):
-    """-v 4 tracing and seed-rich chunks need the generator wave path:
-    they raise NotImplementedError (the CLI exits 1), and the options
-    that are not ported are refused."""
-    import numpy as np
-    from bwamem_tpu.config import MemOptions, fill_scmat
-    from bwamem_tpu.index import load_index
+    """The options that are not ported are refused (the CLI exits 1)."""
     from bwamem_tpu_torch import cli
-    from bwamem_tpu_torch.ops.engine import TorchSeedingEngine
     ref = os.path.join(data_dir, "genome.fa")
     fq = os.path.join(data_dir, "reads_se1.fq")
-    assert run_mem(cli, ["--device", "cpu", "-v", "4", ref, fq])[0] == 1
     for opt in (["--mesh", "2"], ["--profile", "x"], ["--engine", "jax"],
                 ["--device", "tpu"]):
         assert run_mem(cli, opt + [ref, fq])[0] == 1
-    fm, bns = load_index(ref)
-    eng = TorchSeedingEngine(fm, "cpu")
-    opt = MemOptions()
-    opt.mat = fill_scmat(opt.a, opt.b)
-    n = 17
-    flat = (np.array([0, 1]), np.array([0, n]), np.zeros(n, np.int64),
-            np.zeros(n, np.int32), np.full(n, 19, np.int32))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng._pack_and_dispatch(opt, bns, bns.pac, [None], flat)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.drive_waves(opt, [])
+
+
+@pytest.mark.parametrize("flags,reads,golden", [
+    (["-v", "4"], ["reads_se.fq"], "golden_se_v4.txt"),
+    (["-v", "4"], ["reads_1.fq", "reads_2.fq"], "golden_pe_v4.txt"),
+    (["-v", "5"], ["reads_se1.fq"], "golden_se1_v5.txt"),
+], ids=["se_v4", "pe_v4", "se1_v5"])
+def test_mem_trace_matches_golden(data_dir, flags, reads, golden):
+    """The per-read traces of the reference binary (tests/test_trace.py
+    holds the JAX engine to the same files): the whole stdout stream,
+    trace lines and SAM, through the generator wave path."""
+    from bwamem_tpu_torch import cli
+    err = io.StringIO()
+    ret, ours = run_mem(cli, ["--device", "cpu"] + flags + [
+        os.path.join(data_dir, "genome.fa")]
+        + [os.path.join(data_dir, r) for r in reads], stderr=err)
+    assert ret == 0
+    assert ours == load_golden(os.path.join(data_dir, golden))
+    assert device_stats(err.getvalue())["wave_rounds"] > 0
+
+
+def test_chunk_bp_matches_host_engine(data_dir, monkeypatch):
+    """BWAMEM_TPU_CHUNK_BP sets the chunk size as in bwamem_tpu.cli: the
+    PE insert-size statistics are taken per chunk, so the SAM of the
+    bundled pairs in 20 kbp chunks differs from the default and must
+    equal the host engine's under the same setting."""
+    from bwamem_tpu import cli as jax_cli
+    from bwamem_tpu_torch import cli
+    args = [os.path.join(data_dir, n)
+            for n in ("genome.fa", "reads_1.fq", "reads_2.fq")]
+    monkeypatch.setenv("BWAMEM_TPU_CHUNK_BP", "20000")
+    err = io.StringIO()
+    ret_t, got = run_mem(cli, ["--device", "cpu"] + args, stderr=err)
+    ret_h, want = run_mem(jax_cli, ["--engine", "host"] + args)
+    assert ret_t == ret_h == 0
+    assert got == want
+    assert err.getvalue().count("[M::main_mem] read ") > 1
+    assert got != load_golden(os.path.join(data_dir, "golden_pe.sam"))
+
+
+def _repeat_genome(tmp_path):
+    """A 1 kbp unit in 24 copies at 0.5% divergence between random
+    flanks, indexed, and 128 101 bp reads from the copies (1% error),
+    all made from one seed."""
+    from bwamem_tpu import cli as jax_cli
+    rng = np.random.default_rng(2024)
+    unit = rng.integers(0, 4, 1000)
+    parts = [rng.integers(0, 4, 3000)]
+    for _ in range(24):
+        c = unit.copy()
+        mut = rng.random(1000) < 0.005
+        c[mut] = rng.integers(0, 4, int(mut.sum()))
+        parts += [c, rng.integers(0, 4, int(rng.integers(200, 600)))]
+    parts.append(rng.integers(0, 4, 3000))
+    genome = np.concatenate(parts)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    fa = tmp_path / "rep.fa"
+    seq = acgt[genome].tobytes().decode()
+    fa.write_text(">rep\n" + "\n".join(seq[i:i + 70]
+                                       for i in range(0, len(seq), 70))
+                  + "\n")
+    assert jax_cli.main(["index", str(fa)]) == 0
+    starts = np.cumsum([len(p) for p in parts])
+    comp = np.frombuffer(b"TGCA", np.uint8)
+    lines = []
+    for k in range(128):
+        c = int(rng.integers(0, 24))
+        lo = int(starts[2 * c]) + int(rng.integers(0, 900))
+        r = genome[lo:lo + 101].copy()
+        err = rng.random(101) < 0.01
+        r[err] = rng.integers(0, 4, int(err.sum()))
+        s_ = acgt[r]
+        if k % 2:
+            s_ = comp[r[::-1]]
+        lines.append(f"@r{k}\n{s_.tobytes().decode()}\n+\n{'I' * 101}\n")
+    fq = tmp_path / "rep.fq"
+    fq.write_text("".join(lines))
+    return str(fa), str(fq)
+
+
+def test_seed_rich_chunk_matches_host_engine(tmp_path):
+    """Reads from a repeat have more than 16 seeds each: the chunk takes
+    the generator wave path with extend_lr waves, and its SAM equals the
+    host engine's."""
+    from bwamem_tpu import cli as jax_cli
+    from bwamem_tpu_torch import cli
+    fa, fq = _repeat_genome(tmp_path)
+    err = io.StringIO()
+    ret_t, got = run_mem(cli, ["--device", "cpu", fa, fq], stderr=err)
+    ret_h, want = run_mem(jax_cli, ["--engine", "host", fa, fq])
+    assert ret_t == ret_h == 0
+    assert got == want
+    st = device_stats(err.getvalue())
+    assert st["seed_rich_chunks"] == 1 and st["wave_rounds"] > 0
+    assert st["n_extend_lr"] > 0
 
 
 def test_cuda_device_required(data_dir):
