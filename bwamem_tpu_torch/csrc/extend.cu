@@ -17,7 +17,12 @@
 // What bounds it on an H100: the DP is serial along a row (the F
 // dependency), so one seed is O(tlen * band) dependent integer steps on
 // one thread, and the band state eh_h/eh_e[LQ+2] (about 1 KB at LQ=128)
-// lives in local memory, served by L1.  Design: one thread per seed and
+// lives in local memory, served by L1.  Both entries are instantiated for
+// LQ = 128, 256 and 512, the JAX engine's query buckets (ops/engine.py
+// _ext_shapes); at LQ=512 hh/ee/qs take 4,624 bytes of local memory per
+// thread (the ptxas stack and spill numbers of each instantiation are in
+// PERF.md), more than L1 holds for a full SM, so the long buckets' band
+// state also moves through L2.  Design: one thread per seed and
 // thousands of seeds per launch (WAVE_EXT), sequences read straight from
 // the 4-bit-packed rows the host packer writes, the 5x5 scoring matrix in
 // shared memory.  Lanes are size-sorted by the caller, so a warp's
@@ -308,11 +313,17 @@ extern "C" int bm_extend_lr(
   a.aw1 = static_cast<int32_t*>(aw1);
   const int threads = 128;
   const int grid = (B + threads - 1) / threads;
-  if (LQ != 128) return 1001;
-  if (B > 0)
-    extend_lr_kernel<128><<<grid, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        a, static_cast<const int8_t*>(mat), B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* m = static_cast<const int8_t*>(mat);
+  if (LQ != 128 && LQ != 256 && LQ != 512) return 1001;
+  if (B > 0) {
+    if (LQ == 128)
+      extend_lr_kernel<128><<<grid, threads, 0, st>>>(a, m, B);
+    else if (LQ == 256)
+      extend_lr_kernel<256><<<grid, threads, 0, st>>>(a, m, B);
+    else
+      extend_lr_kernel<512><<<grid, threads, 0, st>>>(a, m, B);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 #endif
@@ -347,13 +358,19 @@ extern "C" int bm_extend2(int LQ, int LT, int B, const void* q,
   a.gtle = static_cast<int32_t*>(gtle);
   a.gscore = static_cast<int32_t*>(gscore);
   a.max_off = static_cast<int32_t*>(max_off);
-  if (LQ != 128) return 1001;
+  if (LQ != 128 && LQ != 256 && LQ != 512) return 1001;
   const int threads = 128;
   const int grid = (B + threads - 1) / threads;
-  if (B > 0)
-    extend2_kernel<128><<<grid, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        a, static_cast<const int8_t*>(mat), B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* m = static_cast<const int8_t*>(mat);
+  if (B > 0) {
+    if (LQ == 128)
+      extend2_kernel<128><<<grid, threads, 0, st>>>(a, m, B);
+    else if (LQ == 256)
+      extend2_kernel<256><<<grid, threads, 0, st>>>(a, m, B);
+    else
+      extend2_kernel<512><<<grid, threads, 0, st>>>(a, m, B);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 #endif

@@ -9,7 +9,9 @@ stream are passed as ``c_void_p``; every entry returns
 ``cudaGetLastError()`` and the caller raises when it is not 0.
 
 Each kernel has a ``Kernel`` record holding its launch count: the
-wrapper adds one where it launches the kernel, and nowhere else.
+wrapper adds one where it launches the kernel, and nowhere else, with
+the launch's shape bucket where the kernel has several (``L256``,
+``LQ512``), so a run can show which buckets it went through.
 """
 
 import ctypes
@@ -25,7 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("smem.cu", "sa.cu", "extend.cu", "global.cu", "align.cu")
+SOURCES = ("smem.cu", "sa.cu", "extend.cu", "global.cu", "align.cu",
+           "extbuild.cu")
 HEADERS = ("fm.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,11 +42,15 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.buckets = {}   # "<name>_<bucket>" -> launches
         self._lock = threading.Lock()
 
-    def count(self) -> None:
+    def count(self, bucket: str = "") -> None:
         with self._lock:
             self.launches += 1
+            if bucket:
+                key = f"{self.name}_{bucket}"
+                self.buckets[key] = self.buckets.get(key, 0) + 1
 
 
 SMEM = Kernel("smem_superstep", "bwamem_tpu_torch/csrc/smem.cu",
@@ -58,13 +65,19 @@ GLOBAL2 = Kernel("global2", "bwamem_tpu_torch/csrc/global.cu",
                  "bwamem_tpu/ops/pallas_global.py:266")
 ALIGN2 = Kernel("align2", "bwamem_tpu_torch/csrc/align.cu",
                 "bwamem_tpu/ops/pallas_align.py:180")
-KERNELS = (SMEM, SA, EXTEND, EXTEND2, GLOBAL2, ALIGN2)
+SMEM1 = Kernel("smem1_step", "bwamem_tpu_torch/csrc/smem.cu",
+               "bwamem_tpu/ops/pallas_smem.py:1350 and "
+               "bwamem_tpu/ops/pallas_bigsmem.py:612")
+BUILD = Kernel("build_rows", "bwamem_tpu_torch/csrc/extbuild.cu",
+               "bwamem_tpu/ops/pallas_extbuild.py:245")
+KERNELS = (SMEM, SA, EXTEND, EXTEND2, GLOBAL2, ALIGN2, SMEM1, BUILD)
 
 
 def reset_counts() -> None:
     for k in KERNELS:
         with k._lock:
             k.launches = 0
+            k.buckets = {}
 
 
 _VP = ctypes.c_void_p
@@ -81,6 +94,10 @@ _SIGNATURES = {
                   + [_VP] * 8,
     "bm_global2": [_I, _I, _I] + [_VP] * 6 + [_I] * 4 + [_VP] * 7,
     "bm_align2": [_I, _I, _I, _I] + [_VP] * 6 + [_I] * 5 + [_VP] * 7,
+    "bm_smem_iter_step": [_VP, _I64, _I64, _VP, _VP, _I] + [_VP] * 6
+                         + [_I, _I, _I, _VP, _VP, _VP, _VP],
+    "bm_build_rows": [_VP, _I, _VP, _I64] + [_VP] * 7 + [_I, _I, _I]
+                     + [_VP] * 5,
 }
 
 _lib = None

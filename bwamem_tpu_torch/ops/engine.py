@@ -15,9 +15,27 @@ routes:
   tracing (the per-read extension, then the SE and PE finalize of
   core.pipeline) and chunks richer than 16 seeds per read.
 
-The host C++ library (native/) is required.  Reads longer than the
-seeding bucket (L=128) take the host oracle, as in the JAX engine, and
-are counted as ``host_routed_reads``.  Requests a wave does not take go
+The host C++ library (native/) is required.  Each chunk takes the
+smallest length bucket that holds its longest read of at most
+BWAMEM_TPU_DEV_MAX_LEN (default 512) bp, as in the JAX engine
+(engine.py:156-211): seeding at L=128, 256 or 512, the flat route's
+extension at LQ=128 (target buckets BWAMEM_TPU_LT_BUCKETS, 160/320/544),
+LQ=256 (BWAMEM_TPU_LT_BUCKETS_LONG, 320/544/800) or LQ=512
+(BWAMEM_TPU_LT_BUCKETS_XL, 576/1056).  Reads longer than the chunk's
+seeding bucket take the host oracle and are counted as
+``host_routed_reads``; the wave path keeps LQ=128, as the JAX engine's
+does.  The JAX package's TPU limits on these buckets are left behind:
+the uint8 wire of the 256 bucket (qe == 256 sent as 0), the radix-1024
+merge key of the 512 bucket (the kernels compare (qb, qe) pairs), and
+the on-chip row builder's VMEM caps.
+
+Two routes of the flat path are chosen by environment, as in the JAX
+engine: BWAMEM_TPU_SUPERSTEP=0 seeds round by round (ops/seeding.py
+interval_streams), and BWAMEM_TPU_ONCHIP_EXT=1 (or ``force``) builds
+the extension rows on the device from per-seed scalars
+(ops/extbuild.py).
+
+On the wave path, requests a wave does not take go
 to the scalar oracle (core.swdrive.serve_host) and are counted in
 ``kernel_time_by_tag``: ``wave_host_oversize_<type>`` for lanes past the
 kernel's shapes, ``wave_host_tail`` for rounds with fewer than MIN_WAVE
@@ -41,6 +59,7 @@ import torch
 
 from bwamem_tpu.core import nfinalize
 
+from .extbuild import extend_lr_onchip, pac_tensor, reads_matrix
 from .fm import DeviceFmIndex
 from .ksw import (cigars_from_tracebacks, ksw_extend2_batched,
                   ksw_extend_lr_batched, ksw_global2_batched)
@@ -54,6 +73,11 @@ def _default_min_wave() -> int:
     Python one (bwamem_tpu/ops/engine.py:30-39)."""
     from bwamem_tpu.oracle.ksw import _native
     return 64 if _native() else 8
+
+
+def _int_list(name: str, default: str) -> tuple:
+    """A comma-separated list of ints from the environment."""
+    return tuple(int(x) for x in os.environ.get(name, default).split(","))
 
 
 def _pack4(buf: np.ndarray) -> np.ndarray:
@@ -112,6 +136,10 @@ class TorchSeedingEngine:
         self.fm_host = fm_host
         self.dfm = DeviceFmIndex.from_host(fm_host).to(self.device)
         self.seeder = BatchedSeeder(self.dfm, fm_host, timer=self)
+        # per-chunk length buckets: the L=256 and L=512 seeders are
+        # built when a chunk first needs them (engine.py:156-199)
+        self._seeders = {self.seeder.L: self.seeder}
+        self.dev_max_len = int(env("BWAMEM_TPU_DEV_MAX_LEN", "512"))
         # lane-group widths of the launches (engine.py:24-46): extend2
         # and align2 waves, extend_lr groups, global2 waves
         self.wave = int(env("BWAMEM_TPU_WAVE", "512"))
@@ -119,13 +147,20 @@ class TorchSeedingEngine:
         self.wave_glo = int(env("BWAMEM_TPU_WAVE_GLO", str(self.wave * 2)))
         self.min_wave = (int(env("BWAMEM_TPU_MIN_WAVE", "0"))
                          or _default_min_wave())
-        self.lt_buckets = tuple(int(x) for x in env(
-            "BWAMEM_TPU_LT_BUCKETS", "160,320,544").split(","))
-        # extension shapes of reads up to 128 bp (engine.py:167-170); a
-        # global alignment's target is within the band of its query
+        # extension target buckets of the three query widths
+        # (engine.py:48-56); each list ends at its bucket's LT cap
+        self.lt_buckets = _int_list("BWAMEM_TPU_LT_BUCKETS", "160,320,544")
+        self.lt_buckets_long = _int_list("BWAMEM_TPU_LT_BUCKETS_LONG",
+                                         "320,544,800")
+        self.lt_buckets_xl = _int_list("BWAMEM_TPU_LT_BUCKETS_XL",
+                                       "576,1056")
+        # extension shapes of reads up to 128 bp (engine.py:167-170), the
+        # wave path's at every length; a global alignment's target is
+        # within the band of its query
         self._ext_lq, self._ext_lt = 128, 544
         self._glo_lq, self._glo_lt = 128, 160
         self._mat = None
+        self._pac = None     # (pac, l_pac, its device tensor)
         # device-time accounting (fetch-inclusive, per dispatch tag) and
         # the host-route counters
         self.kernel_time = 0.0
@@ -159,11 +194,31 @@ class TorchSeedingEngine:
                 np.asarray(opt.mat, np.int8)).to(self.device))
         return self._mat[1]
 
+    def _seeder_for(self, max_rl: int) -> BatchedSeeder:
+        """The smallest seeding bucket that holds a chunk's longest
+        device-eligible read (JAX engine.py:181-199)."""
+        L = 128 if max_rl <= 128 else (256 if max_rl <= 256 else 512)
+        if L not in self._seeders:
+            self._seeders[L] = BatchedSeeder(self.dfm, self.fm_host,
+                                             timer=self, L=L)
+        return self._seeders[L]
+
+    def _ext_shapes(self, reads):
+        """The flat route's extension shapes for a chunk: (LQ, LT_max,
+        LT buckets) of its longest read (JAX engine.py:201-211)."""
+        max_rl = max((len(r.seq_nt4) for r in reads), default=0)
+        if max_rl <= self._ext_lq:
+            return self._ext_lq, self._ext_lt, self.lt_buckets
+        if max_rl <= 256:
+            return 256, self.lt_buckets_long[-1], self.lt_buckets_long
+        return 512, self.lt_buckets_xl[-1], self.lt_buckets_xl
+
     def chain_batch(self, opt, reads, traces=None, trace_seeds=False):
         """Device seeding + SA, native chaining, for a chunk; returns a
-        ChainBatch whose `.flat` covers every read in order.  Reads
-        longer than the seeding bucket chain on the host oracle and are
-        spliced in.  With `traces` (one TraceLog per read) it returns
+        ChainBatch whose `.flat` covers every read in order.  The chunk
+        seeds in the smallest bucket that holds its longest read of at
+        most dev_max_len bp; longer reads chain on the host oracle and
+        are spliced in.  With `traces` (one TraceLog per read) it returns
         per-read Chain lists instead, and `trace_seeds` writes the -v 5
         seed dump (bwamem.c:478-479): every seed of a read in array
         order, the ones bridging the forward-reverse boundary included,
@@ -173,9 +228,13 @@ class TorchSeedingEngine:
         for r in reads:
             encode_read(r)
         lens = [len(r.seq_nt4) for r in reads]
+        seeder = self._seeder_for(max(
+            (n for n in lens if n <= self.dev_max_len), default=0))
         dev_idx = [i for i, n in enumerate(lens)
-                   if opt.min_seed_len <= n <= self.seeder.L]
-        host_idx = [i for i, n in enumerate(lens) if n > self.seeder.L]
+                   if opt.min_seed_len <= n <= seeder.L]
+        host_idx = [i for i, n in enumerate(lens) if n > seeder.L]
+        if dev_idx:
+            self._count(f"chunks_L{seeder.L}")
         if host_idx:
             self._count("host_routed_reads", len(host_idx))
         l_pac = self.fm_host.seq_len >> 1
@@ -186,8 +245,8 @@ class TorchSeedingEngine:
         o_ln = np.zeros(0, np.int32)
         if dev_idx:
             queries = [reads[i].seq_nt4 for i in dev_idx]
-            iv = self.seeder.interval_arrays(opt, queries)
-            rid, s_rb, s_qb, s_ln = self.seeder.seeds_from_arrays(
+            iv = seeder.interval_arrays(opt, queries)
+            rid, s_rb, s_qb, s_ln = seeder.seeds_from_arrays(
                 self.fm_host, iv, opt)
             if trace_seeds and traces is not None:
                 for r, rb, qb, ln in zip(rid.tolist(), s_rb.tolist(),
@@ -289,17 +348,20 @@ class TorchSeedingEngine:
     def _pack_and_dispatch(self, opt, bns, pac, reads, flat):
         """Native pack of every seed's extension (oversize lanes served
         by the native scalar twin) and the extension kernel launches in
-        WAVE_EXT lane groups, size-sorted and LT-bucketed.  Returns
-        (pk, pend), or None for a chunk with more than 16 seeds per read:
-        most of those seeds are never extended (the chain filter and the
-        containment test drop them), so such a chunk takes the
-        generator path, which extends only what the serial logic asks
+        WAVE_EXT lane groups, size-sorted and LT-bucketed, at the chunk's
+        extension shapes.  With BWAMEM_TPU_ONCHIP_EXT=1 (or ``force``)
+        the rows are built on the device (ops/extbuild.py): the chunk's
+        reads go up once and each group uploads its per-seed scalars
+        only.  Returns (pk, pend), or None for a chunk with more than 16
+        seeds per read: most of those seeds are never extended (the chain
+        filter and the containment test drop them), so such a chunk takes
+        the generator path, which extends only what the serial logic asks
         for (engine.py:449-451)."""
         n_seeds = len(flat[2])
         if n_seeds > 16 * max(len(reads), 1):
             self._count("seed_rich_chunks")
             return None
-        LQ, LT_max = self._ext_lq, self._ext_lt
+        LQ, LT_max, lt_buckets = self._ext_shapes(reads)
         pk = nfinalize.pack_extlr_native(opt, bns.l_pac, pac, reads, flat,
                                          LQ, LT_max)
         if pk is None:
@@ -312,11 +374,23 @@ class TorchSeedingEngine:
         mat = self._mat_dev(opt)
         B = self.wave_ext
         to_dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        gap = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w,
+               opt.pen_clip5, opt.pen_clip3, opt.zdrop)
+        onchip = (os.environ.get("BWAMEM_TPU_ONCHIP_EXT", "0")
+                  in ("1", "force"))
+        if onchip and len(order):
+            # the reads up to the longest one a device lane extends go up
+            # once per chunk; each group then uploads its scalars only
+            reads_q = to_dev(reads_matrix([r.seq_nt4 for r in reads],
+                                          int(pk["lqv"][order].max())))
+            pac_d = self._pac_dev(pac, bns.l_pac)
+            rid = nfinalize.seed_read_ids(flat, len(reads))
+            rmax1 = pk["srb"] + pk["slv"] + pk["rlt"]
         pend = []
         for lo in range(0, len(order), B):
             grp = order[lo:lo + B]
             g = len(grp)
-            LT = next(b for b in self.lt_buckets
+            LT = next(b for b in lt_buckets
                       if b >= int(pk["lt_need"][grp].max()))
 
             def rows(key, width):
@@ -324,24 +398,40 @@ class TorchSeedingEngine:
                 buf[:g] = pk[key][grp][:, :width >> 1]
                 return to_dev(buf)
 
-            def scal(key, dt, fill=0):
-                a = np.full(B, fill, dt)
-                a[:g] = pk[key][grp]
-                return to_dev(a)
+            def scal(a, dt, fill=0):
+                out = np.full(B, fill, dt)
+                out[:g] = (pk[a] if isinstance(a, str) else a)[grp]
+                return to_dev(out)
 
-            dev_out = ksw_extend_lr_batched(
-                rows("lq_pk", LQ), rows("lt_pk", LT),
-                scal("llq", np.int32), scal("llt", np.int32),
-                rows("rq_pk", LQ), rows("rt_pk", LT),
-                scal("rlq", np.int32), scal("rlt", np.int32),
-                mat, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
-                opt.w, opt.pen_clip5, opt.pen_clip3, opt.zdrop,
-                scal("scs", np.int32), scal("sqb", np.int32),
-                scal("srb", np.int64), scal("rmax0", np.int64),
-                scal("lqv", np.int32, fill=1), scal("slv", np.int32),
-                LQ=LQ, LT=LT)
+            common = (scal("llq", np.int32), scal("llt", np.int32),
+                      scal("rlq", np.int32), scal("rlt", np.int32))
+            if onchip:
+                dev_out = extend_lr_onchip(
+                    reads_q, pac_d, bns.l_pac, scal(rid, np.int32),
+                    scal("sqb", np.int32), scal("slv", np.int32),
+                    scal("srb", np.int64), scal("rmax0", np.int64),
+                    scal(rmax1, np.int64), scal("lqv", np.int32, fill=1),
+                    *common, scal("scs", np.int32), mat, *gap, LQ=LQ,
+                    LT=LT)
+            else:
+                llq, llt, rlq, rlt = common
+                dev_out = ksw_extend_lr_batched(
+                    rows("lq_pk", LQ), rows("lt_pk", LT), llq, llt,
+                    rows("rq_pk", LQ), rows("rt_pk", LT), rlq, rlt, mat,
+                    *gap, scal("scs", np.int32), scal("sqb", np.int32),
+                    scal("srb", np.int64), scal("rmax0", np.int64),
+                    scal("lqv", np.int32, fill=1), scal("slv", np.int32),
+                    LQ=LQ, LT=LT)
             pend.append((grp, dev_out))
         return pk, pend
+
+    def _pac_dev(self, pac, l_pac: int) -> torch.Tensor:
+        """The index's pac on the device, uploaded once per index (keyed
+        by the array itself, JAX engine.py:544-552)."""
+        if self._pac is None or self._pac[0] is not pac \
+                or self._pac[1] != l_pac:
+            self._pac = (pac, l_pac, pac_tensor(pac).to(self.device))
+        return self._pac[2]
 
     def _collect_and_regions(self, opt, bns, pac, reads, flat, pk, pend):
         """Fetch the extension groups and build regions natively; with
@@ -356,9 +446,10 @@ class TorchSeedingEngine:
             for key, arr in zip(res_keys, res):
                 pk[key][grp] = arr[:g]
         if os.environ.get("BWAMEM_TPU_VERIFY"):
+            LQ, LT_max, _ = self._ext_shapes(reads)
             ref = nfinalize.pack_extlr_native(
-                opt, bns.l_pac, pac, reads, flat, self._ext_lq,
-                self._ext_lt, force_scalar=True)
+                opt, bns.l_pac, pac, reads, flat, LQ, LT_max,
+                force_scalar=True)
             n_bad = sum(int((pk[k] != ref[k]).sum()) for k in res_keys)
             if n_bad:
                 sys.stderr.write(

@@ -239,7 +239,7 @@ def extend_lr_plain(lq, lt, llq, llt, rq, rt, rlq, rlt, mat, o_del, e_del,
             aw0.to(i32), aw1.to(i32))
 
 
-_EXT_LQ = (128,)   # LQ values the kernel is instantiated for
+_EXT_LQ = (128, 256, 512)   # LQ values the kernel is instantiated for
 
 
 def extend_lr_cuda(lq, lt, llq, llt, rq, rt, rlq, rlt, mat, o_del, e_del,
@@ -273,7 +273,7 @@ def extend_lr_cuda(lq, lt, llq, llt, rq, rt, rlq, rlt, mat, o_del, e_del,
     if B == 0:
         return tuple(outs)
     lib = _kernels.library()
-    _kernels.EXTEND.count()
+    _kernels.EXTEND.count(f"LQ{LQ}")
     rc = lib.bm_extend_lr(
         LQ, LT, B, *(t.data_ptr() for t in ins), o_del, e_del, o_ins,
         e_ins, w0, pc5, pc3, zdrop, *(t.data_ptr() for t in lane),
@@ -343,7 +343,7 @@ def extend2_cuda(query, target, qlen, tlen, mat, o_del: int, e_del: int,
     if B == 0:
         return tuple(outs)
     lib = _kernels.library()
-    _kernels.EXTEND2.count()
+    _kernels.EXTEND2.count(f"LQ{LQ}")
     rc = lib.bm_extend2(LQ, LT, B, q.data_ptr(), t.data_ptr(),
                         ql.data_ptr(), tl.data_ptr(), m.data_ptr(), o_del,
                         e_del, o_ins, e_ins, wv.data_ptr(), eb.data_ptr(),

@@ -1,17 +1,27 @@
 """Batched seeding: SMEM intervals and their SA-resolved seeds for a
 chunk's reads, as flat arrays for the native chainer.
 
-Port of the flat-array route of bwamem_tpu/ops/seeding.py
-(BatchedSeeder.interval_arrays :418, seeds_from_arrays :620,
-_resolve_keys_device :729).  Reads go to the device in fixed-width lane
-groups; each group is one fused superstep + SA-walk dispatch
-(ops.smem.smem_superstep_sa) and one fetch.  Lanes that overflow a
-device buffer re-run on the host oracle and are spliced back in place;
+Port of bwamem_tpu/ops/seeding.py (BatchedSeeder.interval_arrays :418,
+interval_streams :191 with _SliceRun :809, seeds_from_arrays :620,
+_resolve_keys_device :729).  A seeder serves one length bucket, L=128,
+256 or 512: reads up to L bp, in fixed-width lane groups.  By default
+each group is one fused superstep + SA-walk dispatch
+(ops.smem.smem_superstep_sa) and one fetch.  With
+``BWAMEM_TPU_SUPERSTEP=0`` the iterator runs round by round instead,
+one ops.smem.smem_iter_step launch and fetch per round, the ordered
+merge and the bookkeeping between rounds on the host, and every seed's
+SA value comes from the SA-walk kernel afterwards.  Lanes that overflow
+a device buffer re-run on the host oracle and are spliced back in place;
 SA walks past the step cap and key expansions past KEY_CAP are resolved
-the way the JAX engine resolves them, and each route is counted.
+the way the JAX engine resolves them, and each route is counted in the
+engine's stats: ``ovf_smem_lanes`` (buffer overflows, the M_OUT and
+pass-2 redos of the round route), ``smem_host_tail`` (reads of the round
+route's straggler tail finished on the host), ``ovf_sa_keys`` and
+``ovf_keyexp_groups``.
 """
 
 import os
+from collections import deque
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -20,7 +30,7 @@ import torch
 from bwamem_tpu.config import MEM_F_NO_EXACT
 
 from .fm import DeviceFmIndex, sa_lookup
-from .smem import smem_superstep_sa
+from .smem import smem_iter_step, smem_superstep_sa
 
 Intv = Tuple[int, int, int, int]  # (x0, x1, s, info=qb<<32|qe)
 
@@ -55,13 +65,16 @@ def _merge(matches: List[Intv], sub: List[Intv], max_len: int,
 
 class BatchedSeeder:
     """Per-read interval streams and seeds, computed by the device
-    kernels in lane groups (the L=128 bucket)."""
+    kernels in lane groups, for reads of up to L (128, 256 or 512) bp."""
 
-    def __init__(self, dfm: DeviceFmIndex, fm_host, timer):
+    def __init__(self, dfm: DeviceFmIndex, fm_host, timer, L: int = 128):
         env = os.environ.get
+        if L not in (128, 256, 512):
+            raise ValueError(f"the seeding buckets are L=128, 256 and 512, "
+                             f"got {L}")
         self.dfm = dfm
         self.fm_host = fm_host      # host oracle for the overflow routes
-        self.L = 128                # the seeding bucket: reads <= 128 bp
+        self.L = L                  # the seeding bucket: reads <= L bp
         # psi-walk step cap: the walk to a sampled row is ~geometric
         # with mean sa_intv; past the cap a key takes the host walk
         self.sa_max_steps = 1024
@@ -69,8 +82,18 @@ class BatchedSeeder:
         self.lanes = int(env("BWAMEM_TPU_LANES", "512"))
         self.sa_slice = int(env("BWAMEM_TPU_SA_SLICE", "16384"))
         self.M = int(env("BWAMEM_TPU_SMEM_M", "16"))
-        self.out_cap = int(env("BWAMEM_TPU_OUT_CAP", "48"))
-        self.gcap_per = int(env("BWAMEM_TPU_GCAP_PER_LANE", "12"))
+        # the round route's fetch width: steps with more SMEMs than
+        # M_OUT redo on the host oracle
+        self.m_out = min(int(env("BWAMEM_TPU_SMEM_MOUT", "12")), self.M)
+        # below this many live reads a lane group's remaining rounds run
+        # on the host oracle (the round route's straggler tail)
+        self.min_seed_wave = int(env("BWAMEM_TPU_MIN_SEED_WAVE", "32"))
+        # per-bucket stream caps (JAX seeding.py:90-92): 512 bp reads
+        # emit about twice the intervals of the shorter buckets
+        out_cap = int(env("BWAMEM_TPU_OUT_CAP", "48"))
+        gcap_per = int(env("BWAMEM_TPU_GCAP_PER_LANE", "12"))
+        self.out_cap = out_cap if L <= 256 else max(out_cap, 64)
+        self.gcap_per = gcap_per if L <= 256 else 2 * gcap_per
         self.key_cap = int(env("BWAMEM_TPU_KEY_CAP", str(8 * self.lanes)))
         if self.gcap_per <= 0:
             raise ValueError("BWAMEM_TPU_GCAP_PER_LANE must be positive: "
@@ -79,9 +102,11 @@ class BatchedSeeder:
         self._sa_prefetch = None
 
     def _fetch(self, tensors, tag: str):
-        """One dispatch's results to host numpy arrays, timed."""
-        return self.timer._timed(lambda: [t.cpu().numpy() for t in tensors],
-                                 _tag=tag)
+        """One dispatch's results to host numpy arrays (None stays None),
+        timed."""
+        return self.timer._timed(
+            lambda: [None if t is None else t.cpu().numpy()
+                     for t in tensors], _tag=tag)
 
     def _oracle_finish(self, opt, query, start: int, start_width: int,
                        split_len: int, split_width: int, out: list) -> None:
@@ -119,11 +144,70 @@ class BatchedSeeder:
             matches = _merge(matches, sub, best_len, x, len(query))
         return oret, matches
 
+    def _lane_group(self, opt, grp):
+        """A lane group's packed queries [lanes, L/2], lengths, split
+        lengths and active flags (numpy)."""
+        B = self.lanes
+        sl_init = int(opt.min_seed_len * opt.split_factor + .499)
+        qpad = np.full((B, self.L), 4, dtype=np.int8)
+        qlen = np.zeros(B, dtype=np.int32)
+        slens = np.zeros(B, dtype=np.int32)
+        for i, qq in enumerate(grp):
+            qlen[i] = len(qq)
+            qpad[i, :len(qq)] = qq
+            slens[i] = min(sl_init, len(qq))
+        active = np.zeros(B, dtype=np.uint8)
+        active[:len(grp)] = 1
+        qpk = qpad[:, 0::2] | (qpad[:, 1::2] << np.int8(4))
+        return qpk, qlen, slens, active
+
+    def interval_streams(self, opt, queries: Sequence[np.ndarray],
+                         need_x1: bool = True) -> List[List[Intv]]:
+        """The round route (BWAMEM_TPU_SUPERSTEP=0, JAX seeding.py:191-230
+        and _SliceRun :809-943): per read, the concatenated interval
+        lists (x0, x1, s, qb<<32|qe) of every iterator call, in call
+        order.  Each round of a lane group is one smem_iter_step launch
+        and one fetch; every group's first round is launched before any
+        is fetched, and a group's next round is launched as soon as the
+        previous one is processed.  need_x1=False leaves x1 0 and does
+        not fetch it."""
+        states = [_SliceRun(self, opt, queries[lo:lo + self.lanes])
+                  for lo in range(0, len(queries), self.lanes)]
+        pending = deque()
+        for st in states:
+            if st.advance():
+                pending.append((st, st.dispatch()))
+        while pending:
+            st, res = pending.popleft()
+            if not need_x1:       # m1 and s1: the pass-1 and pass-2 x1
+                res = [None if k in (3, 12) else t
+                       for k, t in enumerate(res)]
+            st.process(self._fetch(res, "smem"))
+            if st.advance():
+                pending.append((st, st.dispatch()))
+        out: List[List[Intv]] = []
+        for st in states:
+            out.extend(st.out)
+        return out
+
     def interval_arrays(self, opt, queries: Sequence[np.ndarray]):
         """Per-interval (x0, size, qb, qe) int64 arrays + read_off, in
-        the exact per-read stream order of the host iterator.  The SA
-        values of the device-covered intervals are kept for
-        seeds_from_arrays."""
+        the exact per-read stream order of the host iterator.  On the
+        superstep route the SA values of the device-covered intervals
+        are kept for seeds_from_arrays; the round route
+        (BWAMEM_TPU_SUPERSTEP=0) flattens interval_streams and leaves
+        every key to the SA-walk kernel."""
+        if os.environ.get("BWAMEM_TPU_SUPERSTEP", "1") == "0":
+            self._sa_prefetch = None
+            streams = self.interval_streams(opt, queries, need_x1=False)
+            counts = np.asarray([len(st) for st in streams], np.int64)
+            read_off = np.zeros(len(queries) + 1, dtype=np.int64)
+            np.cumsum(counts, out=read_off[1:])
+            flat = [p for st in streams for p in st]
+            x0 = np.asarray([p[0] for p in flat], np.int64)
+            sz = np.asarray([p[2] for p in flat], np.int64)
+            info = np.asarray([p[3] for p in flat], np.int64)
+            return x0, sz, info >> 32, info & 0xFFFFFFFF, read_off
         start_width = 2 if (opt.flag & MEM_F_NO_EXACT) else 1
         sl_init = int(opt.min_seed_len * opt.split_factor + .499)
         d = self.dfm
@@ -133,16 +217,7 @@ class BatchedSeeder:
         pend = []
         for lo in range(0, len(queries), B):
             grp = queries[lo:lo + B]
-            qpad = np.full((B, self.L), 4, dtype=np.int8)
-            qlen = np.zeros(B, dtype=np.int32)
-            slens = np.zeros(B, dtype=np.int32)
-            for i, qq in enumerate(grp):
-                qlen[i] = len(qq)
-                qpad[i, :len(qq)] = qq
-                slens[i] = min(sl_init, len(qq))
-            active = np.zeros(B, dtype=np.uint8)
-            active[:len(grp)] = 1
-            qpk = qpad[:, 0::2] | (qpad[:, 1::2] << np.int8(4))
+            qpk, qlen, slens, active = self._lane_group(opt, grp)
             t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
             res = smem_superstep_sa(
                 d, t(qpk), t(qlen),
@@ -311,3 +386,126 @@ class BatchedSeeder:
             vals[lo:lo + n_sl] = v[:n_sl]
             over[lo:lo + n_sl] = o[:n_sl]
         return vals, over
+
+
+def _lane_intervals(i: int, n: int, x0, x1, s, qb, qe) -> List[Intv]:
+    """The first n intervals of lane i of a fetched pass (x1 None: 0)."""
+    x1l = [0] * n if x1 is None else x1[i, :n].tolist()
+    return [(a, b, c, (d << 32) | e) for a, b, c, d, e in zip(
+        x0[i, :n].tolist(), x1l, s[i, :n].tolist(), qb[i, :n].tolist(),
+        qe[i, :n].tolist())]
+
+
+class _SliceRun:
+    """Iterator state of one lane group on the round route (JAX
+    seeding.py _SliceRun): advance() does the host bookkeeping between
+    rounds (the ambiguous-base skip, the straggler tail), dispatch()
+    launches one smem_iter_step, process() takes its fetched results
+    (the M_OUT and pass-2 redos on the host oracle, the ordered merge)."""
+
+    def __init__(self, seeder: BatchedSeeder, opt, queries):
+        self.seeder = seeder
+        self.opt = opt
+        self.queries = queries
+        self.start_width = 2 if (opt.flag & MEM_F_NO_EXACT) else 1
+        qpk, qlen, slens, _ = seeder._lane_group(opt, queries)
+        self.qlen = qlen
+        self.split_lens = slens
+        B = seeder.lanes
+        self.start = np.zeros(B, dtype=np.int64)
+        self.exhausted = np.zeros(B, dtype=bool)
+        self.exhausted[len(queries):] = True
+        self.out: List[List[Intv]] = [[] for _ in queries]
+        # the loop-invariant arrays go up once
+        dev = seeder.dfm.device
+        self.q_d, self.qlen_d, self.sl_d = (
+            torch.from_numpy(a).to(dev) for a in (qpk, qlen, slens))
+        self.sw_d = torch.full((B,), opt.split_width, dtype=torch.int32,
+                               device=dev)
+        self.mi_d = torch.full((B,), self.start_width, dtype=torch.int64,
+                               device=dev)
+        self.active = None
+        self.ori_start = None
+
+    def _finish_on_host(self, i: int) -> None:
+        self.seeder._oracle_finish(
+            self.opt, self.queries[i], int(self.start[i]), self.start_width,
+            int(self.split_lens[i]), self.opt.split_width, self.out[i])
+        self.exhausted[i] = True
+
+    def advance(self) -> bool:
+        """The bookkeeping between rounds; True when a round is to be
+        launched."""
+        sdr = self.seeder
+        for i in np.nonzero(~self.exhausted)[0]:
+            q, s, n = self.queries[i], int(self.start[i]), int(self.qlen[i])
+            while s < n and q[s] > 3:    # software/bwamem.c:258-259
+                s += 1
+            self.start[i] = s
+            self.exhausted[i] = s >= n
+        active = ~self.exhausted
+        n_live = int(active.sum())
+        if n_live == 0:
+            return False
+        if n_live < sdr.min_seed_wave:
+            # straggler tail: the few live reads finish on the host
+            # oracle instead of paying full-width rounds
+            sdr.timer._count("smem_host_tail", n_live)
+            for i in np.nonzero(active)[0]:
+                self._finish_on_host(i)
+            return False
+        self.active = active
+        return True
+
+    def dispatch(self):
+        sdr = self.seeder
+        dev = sdr.dfm.device
+        self.ori_start = self.start.copy()
+        x = np.where(self.active, self.start, 0).astype(np.int32)
+        return smem_iter_step(
+            sdr.dfm, self.q_d, self.qlen_d, torch.from_numpy(x).to(dev),
+            self.mi_d, torch.from_numpy(self.active).to(dev), self.sl_d,
+            self.sw_d, L=sdr.L, M=sdr.M, M_OUT=sdr.m_out)
+
+    def process(self, res) -> None:
+        from bwamem_tpu.oracle.smem import smem1
+        sdr = self.seeder
+        (ret, n_mem, m0, m1, ms, mqb, mqe, over1, need2, _, n2, s0, s1,
+         ss, sqb, sqe, over2) = res
+        n_mem = np.where(over1, sdr.M + 1, n_mem)
+        n2 = np.where(over2, sdr.M + 1, n2)
+        ori = self.ori_start
+        self.start = np.where(self.active, ret, self.start)
+
+        for i in np.nonzero(self.active)[0]:
+            query, qlen = self.queries[i], int(self.qlen[i])
+            if n_mem[i] > sdr.m_out:
+                # more SMEMs than the fetch holds: the whole step again
+                # on the host oracle
+                sdr.timer._count("ovf_smem_lanes")
+                oret, matches = sdr._oracle_step(
+                    self.opt, query, int(ori[i]), self.start_width,
+                    int(self.split_lens[i]), self.opt.split_width)
+                self.start[i] = oret
+                self.out[i].extend(matches)
+                continue
+            matches = _lane_intervals(i, int(n_mem[i]), m0, m1, ms, mqb,
+                                      mqe)
+            if need2[i] and matches:
+                best_len, best = 0, 0
+                for j, p in enumerate(matches):
+                    ln = (p[3] & 0xFFFFFFFF) - (p[3] >> 32)
+                    if best_len < ln:
+                        best_len, best = ln, j
+                pm = matches[best]
+                if n2[i] > sdr.m_out:    # pass 2 outgrew the fetch
+                    sdr.timer._count("ovf_smem_lanes")
+                    _, sub = smem1(sdr.fm_host, query,
+                                   ((pm[3] >> 32) + (pm[3] & 0xFFFFFFFF))
+                                   >> 1, pm[2] + 1)
+                else:
+                    sub = _lane_intervals(i, int(n2[i]), s0, s1, ss, sqb,
+                                          sqe)
+                matches = _merge(matches, sub, best_len, int(ori[i]),
+                                 qlen)
+            self.out[i].extend(matches)

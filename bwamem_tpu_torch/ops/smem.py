@@ -1,16 +1,22 @@
-"""Batched SMEM search in PyTorch: the superstep, the stream compaction
-and key expansion, and the fused superstep + SA walk.
+"""Batched SMEM search in PyTorch: the superstep, one iterator step, the
+stream compaction and key expansion, and the fused superstep + SA walk.
 
 Port of bwamem_tpu/ops/smem.py.  ``superstep`` runs the whole per-read
 SMEM iterator (rounds of bwt_smem1 pass 1, the re-seeding pass 2, the
-ordered merge and the stream append, software/bwamem.c:110-241): on a
-CUDA tensor it launches the superstep kernel (csrc/smem.cu), on a CPU
-tensor it runs the plain version below, a lock-step translation of the
-JAX package's XLA path in which Python ``while`` loops over all lanes
-take the place of ``lax.while_loop``.  The compaction and the key
-expansion are plain tensor code on either device; the SA walk is
-``fm.sa_lookup`` (the SA-walk kernel on CUDA).
+ordered merge and the stream append, software/bwamem.c:110-241);
+``smem_iter_step`` runs one round of it (pass 1, the re-seeding test,
+pass 2) for the round-per-launch route, and leaves the merge to the
+host.  On a CUDA tensor each launches its kernel (csrc/smem.cu), on a
+CPU tensor each runs its plain version below, a lock-step translation
+of the JAX package's XLA path in which Python ``while`` loops over all
+lanes take the place of ``lax.while_loop``.  Queries of up to 512 bp
+(the L=128, 256 and 512 buckets) go through the same code; outputs are
+int32/int64 at every L.  The compaction and the key expansion are plain
+tensor code on either device; the SA walk is ``fm.sa_lookup`` (the
+SA-walk kernel on CUDA).
 """
+
+import ctypes
 
 import torch
 
@@ -67,10 +73,11 @@ def _prev_valid_value(vals, valid, fill: int):
     return torch.where(prev_idx >= 0, got, torch.full_like(got, fill))
 
 
-def _smem1_plain(dfm: DeviceFmIndex, q, qlen, x, min_intv, active, M: int):
+def smem1_plain(dfm: DeviceFmIndex, q, qlen, x, min_intv, active, M: int):
     """One batched bwt_smem1 pass (bwamem_tpu/ops/smem.py _smem1_impl):
-    the SMEMs covering position x per lane.  Returns (ret, n_mem, m0, m1,
-    ms, mqb, mqe, overflow); the m* buffers [B, M] are sorted by qb."""
+    the SMEMs covering position x per lane of the unpacked queries q
+    [B, L].  Returns (ret, n_mem, m0, m1, ms, mqb, mqe, overflow); the m*
+    buffers [B, M] are sorted by qb."""
     B, L = q.shape
     dev = q.device
     i64 = torch.int64
@@ -216,7 +223,7 @@ def superstep_plain(dfm: DeviceFmIndex, q_pk, qlen, min_intv, active,
     done = ~active | (x >= qlen)
     while not bool(done.all()):
         act = ~done
-        ret, n_mem, m0, m1, ms, mqb, mqe, ov1 = _smem1_plain(
+        ret, n_mem, m0, m1, ms, mqb, mqe, ov1 = smem1_plain(
             dfm, q, qlen, x, min_intv, act, M)
         ov1 = ov1 | (n_mem > M)
         # re-seeding test (software/bwamem.c:185-204)
@@ -230,7 +237,7 @@ def superstep_plain(dfm: DeviceFmIndex, q_pk, qlen, min_intv, active,
         need2 = (act & (n_mem > 0) & (split_len > 0)
                  & (best_len >= split_len) & (bs <= split_width) & ~ov1)
         x2 = (bqb + bqe) >> 1
-        _, n2, s0, s1, ss, sqb, sqe, ov2 = _smem1_plain(
+        _, n2, s0, s1, ss, sqb, sqe, ov2 = smem1_plain(
             dfm, q, qlen, torch.where(need2, x2, zero),
             torch.where(need2, bs + 1, zero + 1), need2, M)
         n2 = torch.where(need2, n2, zero)
@@ -291,27 +298,139 @@ def superstep_plain(dfm: DeviceFmIndex, q_pk, qlen, min_intv, active,
             n_out.to(torch.int32), over)
 
 
-def superstep_cuda(dfm: DeviceFmIndex, q_pk, qlen, min_intv, active,
-                   split_len, split_width, L: int, M: int, OUT_CAP: int):
-    """Launch the superstep kernel (csrc/smem.cu).  Same outputs as
-    superstep_plain on the slots the consumer reads: o0/os/oqb/oqe slots
-    [0, n_out) of lanes that did not overflow, n_out and over."""
-    if L % 2 or L > 256:
-        raise ValueError(f"L must be even and <= 256, got {L}")
+MAX_L = 512    # the longest query bucket the kernels take
+
+
+def _check_queries(dfm: DeviceFmIndex, q_pk, qlen, L: int, M: int) -> None:
+    """The SMEM kernels' shape, dtype and device checks."""
+    if L % 2 or not 0 < L <= MAX_L:
+        raise ValueError(f"L must be even and <= {MAX_L}, got {L}")
     if not 1 <= M <= 32:
         raise ValueError(f"M must be in [1, 32], got {M}")
     B = q_pk.shape[0]
     if q_pk.shape != (B, L // 2) or q_pk.dtype != torch.int8:
         raise ValueError(f"q_pk must be int8 ({B}, {L // 2})")
-    dev = q_pk.device
-    if dfm.device != dev:
-        raise ValueError(f"queries on {dev}, index on {dfm.device}")
+    if dfm.device != q_pk.device:
+        raise ValueError(f"queries on {q_pk.device}, index on {dfm.device}")
     if B and int(qlen.max()) > L:
         raise ValueError(f"a query is longer than L={L}")
+
+
+def _step_pass(dfm, q, qlen, x, min_intv, active, M: int, M_OUT: int):
+    """One pass of smem_iter_step on the wire: an overflowing lane is
+    flagged and reads as an inactive one (ret x+1, no SMEMs); the
+    buffers keep M_OUT columns."""
+    i32 = torch.int32
+    ret, n, m0, m1, ms, mqb, mqe, over = smem1_plain(
+        dfm, q, qlen, x, min_intv, active, M)
+    ok = ~over
+    ret = torch.where(ok, ret, x.to(ret.dtype) + 1)
+    n = torch.where(ok, n, torch.zeros_like(n))
+    keep = ok.unsqueeze(1)
+    cols = [torch.where(keep, a[:, :M_OUT], torch.zeros_like(a[:, :M_OUT]))
+            for a in (m0, m1, ms, mqb, mqe)]
+    return (ret.to(i32), n.to(i32), *cols[:3], cols[3].to(i32),
+            cols[4].to(i32), over)
+
+
+def smem_iter_step_plain(dfm: DeviceFmIndex, q_pk, qlen, x, min_intv,
+                         active, split_len, split_width, L: int, M: int,
+                         M_OUT: int):
+    """Plain version of one fused iterator step (bwamem_tpu/ops/smem.py
+    smem_iter_step, PALLAS=False): pass 1 from x with min_intv; the
+    re-seeding test on the longest SMEM (the first maximum in qb order,
+    software/bwamem.c:185-204); pass 2 from its middle with min_intv =
+    its size + 1 on the lanes that pass it.  Returns (ret, n_mem, m0, m1,
+    ms, mqb, mqe, over1, need2, ret2, n2, s0, s1, ss, sqb, sqe, over2):
+    ret/n int32 [B]; x0/x1/s int64 and qb/qe int32 [B, M_OUT], qb
+    ascending, zero past n; the flags bool [B].  n counts every SMEM of
+    the pass (up to M), so n > M_OUT says the buffers were cut."""
+    q = unpack4(q_pk, L)
+    i64 = torch.int64
+    act = active.bool()
+    x = x.to(i64)
+    r1 = _step_pass(dfm, q, qlen, x, min_intv, act, M, M)
+    _, n1, m0, _, ms, mqb, mqe, over1 = r1
+    jj = torch.arange(M, device=q.device).unsqueeze(0)
+    lens = torch.where(jj < n1.unsqueeze(1), (mqe - mqb).to(i64),
+                       torch.full_like(m0, -1))
+    best = lens.argmax(1)
+    best_len = sel_col(lens, best)
+    bs = sel_col(ms, best)
+    need2 = (act & (n1 > 0) & (split_len.to(i64) > 0)
+             & (best_len >= split_len.to(i64))
+             & (bs <= split_width.to(i64)) & ~over1)
+    x2 = (sel_col(mqb.to(i64), best) + sel_col(mqe.to(i64), best)) >> 1
+    zero = torch.zeros_like(x2)
+    r2 = _step_pass(dfm, q, qlen, torch.where(need2, x2, zero),
+                    torch.where(need2, bs + 1, zero + 1), need2, M, M_OUT)
+    r1 = r1[:2] + tuple(a[:, :M_OUT] for a in r1[2:7]) + r1[7:]
+    return r1 + (need2,) + r2
+
+
+def smem_iter_step_cuda(dfm: DeviceFmIndex, q_pk, qlen, x, min_intv,
+                        active, split_len, split_width, L: int, M: int,
+                        M_OUT: int):
+    """Launch the iterator-step kernel (csrc/smem.cu bm_smem_iter_step).
+    Same outputs as smem_iter_step_plain."""
+    _check_queries(dfm, q_pk, qlen, L, M)
+    if not 1 <= M_OUT <= M:
+        raise ValueError(f"M_OUT must be in [1, M={M}], got {M_OUT}")
+    B = q_pk.shape[0]
+    dev = q_pk.device
+    i32, i64, u8 = torch.int32, torch.int64, torch.uint8
+    args = [t.to(device=dev, dtype=dt).contiguous() for t, dt in (
+        (q_pk, torch.int8), (qlen, i32), (x, i32), (min_intv, i64),
+        (active, u8), (split_len, i32), (split_width, i32))]
+    if any(a.shape != (B,) for a in args[1:]):
+        raise ValueError(f"the per-lane arrays must have shape ({B},)")
+
+    def pass_out():
+        return [torch.empty(B, dtype=i32, device=dev) for _ in range(2)] \
+            + [torch.empty(B, M_OUT, dtype=i64, device=dev)
+               for _ in range(3)] \
+            + [torch.empty(B, M_OUT, dtype=i32, device=dev)
+               for _ in range(2)] \
+            + [torch.empty(B, dtype=u8, device=dev)]
+    o1, o2 = pass_out(), pass_out()
+    need2 = torch.empty(B, dtype=u8, device=dev)
+    if B:
+        p1, p2 = ((ctypes.c_void_p * 8)(*(t.data_ptr() for t in o))
+                  for o in (o1, o2))
+        lib = _kernels.library()
+        _kernels.SMEM1.count(f"L{L}")
+        rc = lib.bm_smem_iter_step(
+            dfm.blocks.data_ptr(), dfm.primary_int, dfm.seq_len_int,
+            dfm.L2_host.ctypes.data, args[0].data_ptr(), L,
+            *(a.data_ptr() for a in args[1:]), M, M_OUT, B, p1,
+            need2.data_ptr(), p2, _kernels.stream_of(need2))
+        _kernels.check(rc, "smem_iter_step")
+    return (*o1[:7], o1[7].bool(), need2.bool(), *o2[:7], o2[7].bool())
+
+
+def smem_iter_step(dfm, q_pk, qlen, x, min_intv, active, split_len,
+                   split_width, L: int, M: int, M_OUT: int):
+    """One SMEM iterator step: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    fn = smem_iter_step_cuda if q_pk.is_cuda else smem_iter_step_plain
+    return fn(dfm, q_pk, qlen, x, min_intv, active, split_len, split_width,
+              L, M, M_OUT)
+
+
+def superstep_cuda(dfm: DeviceFmIndex, q_pk, qlen, min_intv, active,
+                   split_len, split_width, L: int, M: int, OUT_CAP: int):
+    """Launch the superstep kernel (csrc/smem.cu).  Same outputs as
+    superstep_plain on the slots the consumer reads: o0/os/oqb/oqe slots
+    [0, n_out) of lanes that did not overflow, n_out and over."""
+    _check_queries(dfm, q_pk, qlen, L, M)
+    B = q_pk.shape[0]
+    dev = q_pk.device
     args = [t.to(device=dev, dtype=dt).contiguous() for t, dt in (
         (q_pk, torch.int8), (qlen, torch.int32), (min_intv, torch.int64),
         (active, torch.uint8), (split_len, torch.int32),
         (split_width, torch.int32))]
+    if any(a.shape != (B,) for a in args[1:]):
+        raise ValueError(f"the per-lane arrays must have shape ({B},)")
     o0 = torch.empty(B, OUT_CAP, dtype=torch.int64, device=dev)
     os_ = torch.empty_like(o0)
     oqb = torch.empty(B, OUT_CAP, dtype=torch.int32, device=dev)
@@ -321,7 +440,7 @@ def superstep_cuda(dfm: DeviceFmIndex, q_pk, qlen, min_intv, active,
     if B == 0:
         return o0, os_, oqb, oqe, n_out, over.bool()
     lib = _kernels.library()
-    _kernels.SMEM.count()
+    _kernels.SMEM.count(f"L{L}")
     rc = lib.bm_smem_superstep(
         dfm.blocks.data_ptr(), dfm.primary_int, dfm.seq_len_int,
         dfm.L2_host.ctypes.data, args[0].data_ptr(), L,

@@ -8,7 +8,8 @@ Phases, each printing one line with its own numbers and seconds:
 
 1. probe: the card, its capability (must be 9.0), its power limit, nvcc,
    and the build of the CUDA kernels from csrc/ (one nvcc per source,
-   all started together);
+   all started together), with each kernel's ptxas registers, stack and
+   spills;
 2. kernels: each kernel against its plain PyTorch version on the same
    CUDA inputs at the main path's widths (LANES=8192, KEY_CAP=65536,
    WAVE_EXT=16384; WAVE=512 for extend2 and align2, WAVE_GLO=1024 for
@@ -16,7 +17,15 @@ Phases, each printing one line with its own numbers and seconds:
    length of E. coli K-12 MG1655) generated by tools/make_biggenome.py.
    The extend2 lanes are the extension rows of the genome's seeds; the
    global2 and align2 lanes are its reads against mutated reference
-   windows at their seeds.  Integer outputs: the tolerance is zero;
+   windows at their seeds.  The long buckets and the two routes' kernels
+   too: the SMEM iterator step (smem1_step) at L=128/256/512, the
+   superstep at L=256/512, extend_lr at LQ=256 (LT=800) and LQ=512
+   (LT=1056) over the seeds of reads cut from the genome, and the row
+   builder (build_rows) at LQ=128/LT=544 and LQ=256/LT=800, also against
+   the host packer's rows; the long buckets' superstep and extension
+   are held against their plain versions on their first 1,024 lanes
+   (PLAIN_LANES), the plain versions being slow at full width.  Integer
+   outputs: the tolerance is zero;
 3. goldens: ``mem`` SE, SE -a -M and PE on tests/data through
    ``bwamem_tpu_torch.cli --device cuda``, byte-identical to the goldens
    (without @PG), then the -v 4 SE, -v 4 PE and -v 5 traces of the
@@ -25,8 +34,17 @@ Phases, each printing one line with its own numbers and seconds:
    genome, timed (reads/s, device time per tag, host-route counters),
    then again with BWAMEM_TPU_VERIFY=1 (every extension checked against
    the native scalar twin, same output), then the first 4,000 reads and
-   2,000 pairs diffed against ``bwamem_tpu.cli mem --engine host``;
-   then -v 4 on 5,000 pairs, whose SAM records equal a -v 3 run of the
+   2,000 pairs diffed against ``bwamem_tpu.cli mem --engine host``.
+   Long reads from tools/sample_reads.py --read-len on the same genome:
+   50,000 SE reads of 150 bp, 20,000 pairs of 2x150 bp, 20,000 SE reads
+   of 250 bp and 5,000 of 400 bp, each timed, served on the device
+   (host_routed_reads 0, the L=256 or L=512 seeding bucket), its first
+   2,000 reads (1,000 pairs) diffed against ``--engine host``.  The two
+   routes of the flat path chosen by environment, BWAMEM_TPU_SUPERSTEP=0
+   (round-per-launch seeding) and BWAMEM_TPU_ONCHIP_EXT=1 (extension
+   rows built on the device): the SE and PE goldens, then the 100k SE
+   and the 2x150 bp runs, timed, each equal to the default route's SAM.
+   Then -v 4 on 5,000 pairs, whose SAM records equal a -v 3 run of the
    same files, and on their first 500 pairs the whole -v 4 output equal
    to ``bwamem_tpu.cli mem --engine host -v 4``; then seed-rich chunks:
    2,000 reads and 1,000 pairs of a 16 Mbp repeat genome
@@ -34,11 +52,14 @@ Phases, each printing one line with its own numbers and seconds:
    human-scale genome for the time limit), byte-identical to
    ``--engine host``.
 
-Launch counts are zeroed just before the phase-3 goldens; the flat-route
-kernels (superstep, SA walk, extend_lr) must have launched after phase
-4, and the wave-path kernels (extend2, global2, align2) after the
-phase-3 traces.  The last two lines are the kernels' JSON record and the
-result JSON; any failure exits non-zero without them.
+Launch counts are zeroed just before each path and read just after: the
+default flat route (goldens, real size, long reads: superstep, SA walk
+and extend_lr launched, at L=256, L=512, LQ=256 and LQ=512 too), the
+SUPERSTEP=0 route (smem1_step, SA walk, extend_lr), the ONCHIP_EXT=1
+route (superstep, SA walk, build_rows, extend_lr) and the generator wave
+path (extend2, global2, align2).  The last two lines are the kernels'
+JSON record (launches, per-bucket launches and times) and the result
+JSON; any failure exits non-zero without them.
 """
 
 import io
@@ -60,6 +81,24 @@ N_TRACE_PE, N_TRACE_HOST_PE = 5000, 500
 REP = os.path.join(HERE, ".smoke_data", "repeat_16mbp")
 REP_READS = ["--n-se", "2000", "--n-pe", "1000"]
 DEVICE = "cuda"     # the port's --device for every run_mem
+GOLDENS = (
+    ("se", [os.path.join(DATA, "genome.fa"),
+            os.path.join(DATA, "reads_se.fq")], "golden_se.sam"),
+    ("se_aM", ["-a", "-M", os.path.join(DATA, "genome.fa"),
+               os.path.join(DATA, "reads_se.fq")], "golden_se_aM.sam"),
+    ("pe", [os.path.join(DATA, "genome.fa"), os.path.join(DATA, "reads_1.fq"),
+            os.path.join(DATA, "reads_2.fq")], "golden_pe.sam"))
+# long-read sets on the bacterial-size genome (tools/sample_reads.py):
+# directory, SE reads, pairs, read length
+LONG_SETS = (("long150", 50000, 20000, 150), ("long250", 20000, 0, 250),
+             ("long400", 5000, 0, 400))
+# the runs of those sets: tag, directory, files, reads, seeding bucket
+LONG_RUNS = (("se150", "long150", ["reads_se.fq"], 50000, "chunks_L256"),
+             ("pe150", "long150", ["reads_1.fq", "reads_2.fq"], 40000,
+              "chunks_L256"),
+             ("se250", "long250", ["reads_se.fq"], 20000, "chunks_L256"),
+             ("se400", "long400", ["reads_se.fq"], 5000, "chunks_L512"))
+N_DIFF_LONG = 2000   # reads of each long-read run diffed (pairs: half)
 
 
 def say(phase, **kv):
@@ -214,7 +253,7 @@ def check_kernels(label, idx_prefix, fq, rec):
         raise RuntimeError(f"{label}: superstep slots differ ({err})")
     rec["smem_superstep"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
                                       max_abs_err=err, lanes=B,
-                                      over=int(over.sum())))
+                                      over=int(over.sum()), bucket="L128"))
 
     # SA walk: the main path's KEY_CAP occurrence keys of those reads
     c0, cs, cqb, cqe, n, _ = tsm.compact_streams(*ko[:4], ko[4], ko[5],
@@ -269,13 +308,16 @@ def check_kernels(label, idx_prefix, fq, rec):
         raise RuntimeError(f"{label}: extension differs ({err})")
     rec["extend_lr"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
                                  max_abs_err=err, lanes=W, LT=LT,
-                                 distinct_seeds=len(lanes)))
+                                 distinct_seeds=len(lanes), bucket="LQ128"))
     check_sw_kernels(label, eng, bns, opt, reads, cb.flat, pk, rec)
+    check_long_kernels(label, eng, bns, opt, (q, qlen), reads, cb.flat, pk,
+                       rec)
     del eng
     torch.cuda.empty_cache()
     say("kernels", index=label, blocks=int(d.n_blocks),
         seconds=time.perf_counter() - t0,
-        results={k: v[-1] for k, v in rec.items()})
+        results={k: [r for r in v if r["index"] == label]
+                 for k, v in rec.items()})
 
 
 def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
@@ -393,6 +435,191 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
     rec["align2"].append(res)
 
 
+def cut_reads(bns, n, L, seed):
+    """n reads of L/2+1..L bp cut from the index's reference (both
+    strands): the first four exact full-length copies, the rest with 1%
+    substitutions and, in a third of them, an N."""
+    import numpy as np
+    from bwamem_tpu.core.pipeline import encode_read
+    from bwamem_tpu.index.bntseq import get_seq
+    from bwamem_tpu.io.fastq import Read
+    rng = np.random.default_rng(seed)
+    acgtn = np.frombuffer(b"ACGTN", np.uint8)
+    reads = []
+    for i in range(n):
+        ln = L if i < 4 else int(rng.integers(L // 2 + 1, L + 1))
+        beg = int(rng.integers(0, 2 * bns.l_pac - ln))
+        if beg < bns.l_pac < beg + ln:
+            beg = bns.l_pac
+        s = get_seq(bns.l_pac, bns.pac, beg, beg + ln).astype(np.int64)
+        if i >= 4:
+            mut = rng.random(ln) < 0.01
+            s[mut] = rng.integers(0, 4, int(mut.sum()))
+            if rng.random() < 0.33:
+                s[int(rng.integers(0, ln))] = 4
+        r = Read(f"cut{i}", None, acgtn[s].tobytes().decode(), "I" * ln)
+        encode_read(r)
+        reads.append(r)
+    return reads
+
+
+def lane_queries(seqs, B, L):
+    """B lanes of nt4 queries (the reads repeated to fill), packed two
+    bases a byte, and their lengths."""
+    import numpy as np
+    q = np.full((B, L), 4, np.int8)
+    qlen = np.zeros(B, np.int32)
+    for i in range(B):
+        s = seqs[i % len(seqs)]
+        q[i, :len(s)] = s
+        qlen[i] = len(s)
+    return q[:, 0::2] | (q[:, 1::2] << np.int8(4)), qlen
+
+
+PLAIN_LANES = 1024   # lanes held against a plain version that is slow
+
+
+def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
+    """Phase 2, the long buckets and the two routes' kernels: the SMEM
+    iterator step at L=128/256/512, the superstep at L=256/512, the
+    fused extension at LQ=256 (LT=800) and LQ=512 (LT=1056), and the row
+    builder at LQ=128/LT=544 and LQ=256/LT=800 against its plain version
+    and the host packer's rows.  Where the plain version is slow at full
+    width (the superstep and the extension of the long buckets), the
+    kernel runs at full width and the first PLAIN_LANES lanes are held
+    against the plain version run on those lanes alone (lanes are
+    independent)."""
+    import numpy as np
+    import torch
+    from bwamem_tpu.core import nfinalize
+    from bwamem_tpu_torch.ops import extbuild as teb, ksw as tks, smem as tsm
+    dev = torch.device("cuda")
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    d, sdr = eng.dfm, eng.seeder
+    B, M = sdr.lanes, sdr.M
+    sl = int(opt.min_seed_len * opt.split_factor + .499)
+    cut = {L: cut_reads(bns, 2048, L, L) for L in (256, 512)}
+
+    def smem_args(qp, qlen, n, x=None):
+        base = (d, T(qp[:n]), T(qlen[:n]))
+        if x is not None:
+            base += (T(x[:n]),)
+        return base + (T(np.ones(n, np.int64)), T(np.ones(n, np.uint8)),
+                       T(np.minimum(sl, qlen[:n]).astype(np.int32)),
+                       T(np.full(n, opt.split_width, np.int32)))
+
+    # the iterator step (BWAMEM_TPU_SUPERSTEP=0): pass 1 from a random
+    # position of each read, the re-seeding test, pass 2
+    for L in (128, 256, 512):
+        if L == 128:
+            q, qlen = q128
+            qp = q[:, 0::2] | (q[:, 1::2] << np.int8(4))
+        else:
+            qp, qlen = lane_queries([r.seq_nt4 for r in cut[L]], B, L)
+        x = (np.random.default_rng(L).random(B) * qlen).astype(np.int32)
+        args = smem_args(qp, qlen, B, x) + (L, M, sdr.m_out)
+        k_ms, ko = cuda_ms(lambda: tsm.smem_iter_step_cuda(*args), 3)
+        p_ms, po = cuda_ms(lambda: tsm.smem_iter_step_plain(*args), 1, False)
+        err = max_err(list(zip(ko, po)))
+        if err:
+            raise RuntimeError(f"{label}: smem1_step L={L} differs ({err})")
+        rec["smem1_step"].append(dict(
+            index=label, bucket=f"L{L}", ms=k_ms, plain_ms=p_ms,
+            max_abs_err=err, lanes=B, need2=int(ko[8].sum()),
+            over=int(ko[7].sum())))
+
+    # the superstep at the long buckets, with their stream caps
+    for L in (256, 512):
+        s_L = eng._seeder_for(L)
+        qp, qlen = lane_queries([r.seq_nt4 for r in cut[L]], B, L)
+        tail = (L, M, s_L.out_cap)
+        k_ms, ko = cuda_ms(
+            lambda: tsm.superstep_cuda(*smem_args(qp, qlen, B), *tail), 3)
+        n = PLAIN_LANES
+        p_ms, po = cuda_ms(
+            lambda: tsm.superstep_plain(*smem_args(qp, qlen, n), *tail), 1,
+            False)
+        ko = [a[:n] for a in ko]
+        over = po[5]
+        ok = ~over
+        slot = (torch.arange(s_L.out_cap, device=dev).unsqueeze(0)
+                < po[4].unsqueeze(1)) & ok.unsqueeze(1)
+        err = max(max_err([(ko[i][slot], po[i][slot]) for i in range(4)]
+                          + [(ko[4][ok], po[4][ok])]),
+                  int(not torch.equal(ko[5], over)))
+        if err:
+            raise RuntimeError(f"{label}: superstep L={L} differs ({err})")
+        full = int((ko[3][slot] == L).sum())
+        rec["smem_superstep"].append(dict(
+            index=label, bucket=f"L{L}", ms=k_ms, plain_ms=p_ms,
+            max_abs_err=err, lanes=B, plain_lanes=n, over=int(over.sum()),
+            full_length_matches=full))
+
+    # the fused extension at the long query buckets: seeds of the cut
+    # reads at the bucket's widest target
+    W = eng.wave_ext
+    mat = eng._mat_dev(opt)
+    long_pk = {}
+    for L, LT in ((256, 800), (512, 1056)):
+        rl = cut[L]
+        fl = eng.chain_batch(opt, rl).flat
+        lpk = nfinalize.pack_extlr_native(opt, bns.l_pac, bns.pac, rl, fl,
+                                          L, LT)
+        long_pk[L] = (rl, fl, lpk)
+        lanes = np.nonzero(lpk["served"] == 0)[0]
+        grp = np.resize(lanes, W)
+
+        def ext_args(g):
+            rows = lambda k, w: T(lpk[k][g][:, :w // 2])  # noqa: E731
+            return (rows("lq_pk", L), rows("lt_pk", LT), T(lpk["llq"][g]),
+                    T(lpk["llt"][g]), rows("rq_pk", L), rows("rt_pk", LT),
+                    T(lpk["rlq"][g]), T(lpk["rlt"][g]), mat, opt.o_del,
+                    opt.e_del, opt.o_ins, opt.e_ins, opt.w, opt.pen_clip5,
+                    opt.pen_clip3, opt.zdrop, T(lpk["scs"][g]),
+                    T(lpk["sqb"][g]), T(lpk["srb"][g]), T(lpk["rmax0"][g]),
+                    T(lpk["lqv"][g]), T(lpk["slv"][g]), L, LT)
+        full_args = ext_args(grp)
+        k_ms, ke = cuda_ms(lambda: tks.extend_lr_cuda(*full_args), 3)
+        n = PLAIN_LANES
+        p_args = ext_args(grp[:n])
+        p_ms, pe_ = cuda_ms(lambda: tks.extend_lr_plain(*p_args), 1, False)
+        err = max_err([(a[:n], b) for a, b in zip(ke, pe_)])
+        if err:
+            raise RuntimeError(f"{label}: extension LQ={L} differs ({err})")
+        rec["extend_lr"].append(dict(
+            index=label, bucket=f"LQ{L}", ms=k_ms, plain_ms=p_ms,
+            max_abs_err=err, lanes=W, plain_lanes=n, LT=LT,
+            distinct_seeds=len(lanes),
+            longest_side=int(max(lpk["llq"][lanes].max(),
+                                 lpk["rlq"][lanes].max()))))
+
+    # the row builder (BWAMEM_TPU_ONCHIP_EXT=1) over WAVE_EXT seeds
+    pac_d = teb.pac_tensor(bns.pac).to(dev)
+    for LQ, LT, rds, fl, bpk in ((128, 544, reads, flat, pk),
+                                 (256, 800) + long_pk[256]):
+        lanes = np.nonzero(bpk["served"] == 0)[0]
+        g = np.resize(lanes, W)
+        rid = nfinalize.seed_read_ids(fl, len(rds))
+        args = (T(teb.reads_matrix([r.seq_nt4 for r in rds],
+                                   max(len(r.seq_nt4) for r in rds))),
+                pac_d, bns.l_pac, T(rid[g]), T(bpk["sqb"][g]),
+                T(bpk["slv"][g]), T(bpk["srb"][g]), T(bpk["rmax0"][g]),
+                T((bpk["srb"] + bpk["slv"] + bpk["rlt"])[g]),
+                T(bpk["lqv"][g]), LQ, LT)
+        k_ms, ko = cuda_ms(lambda: teb.build_rows_cuda(*args), 3)
+        p_ms, po = cuda_ms(lambda: teb.build_rows_plain(*args), 1, False)
+        err = max_err(list(zip(ko, po)))
+        host_err = max_err([(a, T(bpk[k][g][:, :a.shape[1]])) for a, k in
+                            zip(ko, ("lq_pk", "lt_pk", "rq_pk", "rt_pk"))])
+        if err or host_err:
+            raise RuntimeError(f"{label}: build_rows LQ={LQ} LT={LT} differs "
+                               f"(plain {err}, host rows {host_err})")
+        rec["build_rows"].append(dict(
+            index=label, bucket=f"LQ{LQ}", ms=k_ms, plain_ms=p_ms,
+            max_abs_err=err, host_rows_err=host_err, lanes=W, LT=LT,
+            distinct_seeds=len(lanes)))
+
+
 def main(argv):
     quick = "--quick" in argv
     import torch
@@ -423,8 +650,10 @@ def main(argv):
     tb = time.perf_counter()
     _kernels.library()
     build_s = time.perf_counter() - tb
-    ptxas = [ln.strip() for ln in _kernels.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = [ln.replace("ptxas info    : ", "").strip()
+             for ln in _kernels.build_log().splitlines()
+             if "registers" in ln or "spill" in ln
+             or "Function properties for" in ln]
     say("probe", device=name, capability=list(cap), smi=smi, nvcc=nvcc,
         torch=torch.__version__, build_seconds=build_s, ptxas=ptxas,
         seconds=time.perf_counter() - t0)
@@ -437,7 +666,18 @@ def main(argv):
                             os.path.join(HERE, "tools", "make_biggenome.py"),
                             BIG] + BIG_ARGS, check=True,
                            stdout=subprocess.DEVNULL)
-        say("data", dir=BIG, seconds=time.perf_counter() - t0)
+        for sub, n_se, n_pe, rl in LONG_SETS:
+            dst = os.path.join(BIG, sub)
+            if not os.path.exists(os.path.join(dst, "reads_se.fq")):
+                os.makedirs(dst, exist_ok=True)
+                subprocess.run([sys.executable, os.path.join(
+                    HERE, "tools", "sample_reads.py"),
+                    os.path.join(BIG, "genome.fa"), "--out", dst,
+                    "--n-se", str(n_se), "--n-pe", str(n_pe),
+                    "--read-len", str(rl)], check=True,
+                    stdout=subprocess.DEVNULL)
+        say("data", dir=BIG, long_sets=[s[0] for s in LONG_SETS],
+            seconds=time.perf_counter() - t0)
 
     # 2. kernels against their plain versions
     rec = {k.name: [] for k in _kernels.KERNELS}
@@ -454,22 +694,43 @@ def main(argv):
     ref = os.path.join(DATA, "genome.fa")
     _kernels.reset_counts()
     t0 = time.perf_counter()
-    for tag, args, golden in (
-            ("se", [ref, os.path.join(DATA, "reads_se.fq")],
-             "golden_se.sam"),
-            ("se_aM", ["-a", "-M", ref, os.path.join(DATA, "reads_se.fq")],
-             "golden_se_aM.sam"),
-            ("pe", [ref, os.path.join(DATA, "reads_1.fq"),
-                    os.path.join(DATA, "reads_2.fq")], "golden_pe.sam")):
+    for tag, args, golden in GOLDENS:
         check_golden(args, os.path.join(out, f"smoke_{tag}.sam"), golden)
-    say("goldens", identical=["golden_se.sam", "golden_se_aM.sam",
-                              "golden_pe.sam"],
+    say("goldens", identical=[g for _, _, g in GOLDENS],
         launches={k.name: k.launches for k in _kernels.KERNELS},
         seconds=time.perf_counter() - t0)
+    defaults = {}
     if not quick:
-        real_size()
+        defaults = real_size()
+        defaults.update(long_reads())
     launches = read_counts((_kernels.SMEM, _kernels.SA, _kernels.EXTEND),
                            "the flat route")
+    buckets = read_buckets((_kernels.SMEM, _kernels.EXTEND),
+                           () if quick else ("smem_superstep_L256",
+                                             "smem_superstep_L512",
+                                             "extend_lr_LQ256",
+                                             "extend_lr_LQ512"),
+                           "the flat route")
+
+    # 3-4 on the two routes of the flat path chosen by environment, each
+    # counted on its own: round-per-launch seeding (the iterator-step
+    # kernel) and the extension rows built on the device
+    for route, env, kernels in (
+            ("superstep0", {"BWAMEM_TPU_SUPERSTEP": "0"},
+             (_kernels.SMEM1, _kernels.SA, _kernels.EXTEND)),
+            ("onchip_ext", {"BWAMEM_TPU_ONCHIP_EXT": "1"},
+             (_kernels.SMEM, _kernels.SA, _kernels.BUILD,
+              _kernels.EXTEND))):
+        _kernels.reset_counts()
+        route_goldens(route, env)
+        if not quick:
+            route_real_size(route, env, defaults)
+        counts = read_counts(kernels, f"the {route} route")
+        launches.update({k: v for k, v in counts.items()
+                         if k not in launches})
+        buckets.update(read_buckets(
+            [k for k in kernels if k in (_kernels.SMEM1, _kernels.BUILD)],
+            (), f"the {route} route"))
 
     # 3-4 on the generator wave path, counted the same way
     _kernels.reset_counts()
@@ -499,12 +760,20 @@ def main(argv):
 
     kernels = []
     for k in _kernels.KERNELS:
-        last = rec[k.name][-1]      # the largest index measured
+        # ms and plain_ms: the L=128/LQ=128 shape (or the kernel's only
+        # one) on the largest index measured; the other buckets beside
+        main = [r for r in rec[k.name]
+                if r.get("bucket") in (None, "L128", "LQ128")][-1]
         kernels.append(dict(
             name=k.name, route="cuda", source=k.source,
             replaces=k.replaces, launches=launches[k.name],
             max_abs_err=max(r["max_abs_err"] for r in rec[k.name]),
-            ms=last["ms"], plain_ms=last["plain_ms"]))
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bucket_launches={b: n for b, n in buckets.items()
+                             if b.startswith(k.name + "_")},
+            bucket_ms={r["bucket"]: [r["ms"], r["plain_ms"]]
+                       for r in rec[k.name]
+                       if "bucket" in r and r["index"] == main["index"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -513,9 +782,9 @@ def main(argv):
     return 0
 
 
-def check_golden(args, path, golden):
+def check_golden(args, path, golden, env=None):
     """`mem` on tests/data against a golden file; returns its stderr."""
-    err, _ = run_mem(args, path)
+    err, _ = run_mem(args, path, env)
     if sam_body(path) != sam_body(os.path.join(DATA, golden)):
         raise RuntimeError(f"golden {golden}: output differs ({path})")
     return err
@@ -529,11 +798,27 @@ def read_counts(kernels, path):
     return counts
 
 
+def read_buckets(kernels, required, path):
+    """The per-bucket launch counts of a path's kernels; each bucket in
+    `required` must be > 0."""
+    counts = {}
+    for k in kernels:
+        counts.update(k.buckets)
+    missing = [b for b in required if not counts.get(b)]
+    if missing:
+        raise RuntimeError(f"{path} did not launch {missing}: {counts}")
+    return counts
+
+
 def real_size():
+    """100k SE reads and 20k pairs: timed, again with every extension
+    verified, and the diff subsets against the host engine.  Returns the
+    runs the routes are held to."""
     idx = os.path.join(BIG, "genome.fa")
     se = os.path.join(BIG, "reads_se.fq")
     r1 = os.path.join(BIG, "reads_1.fq")
     r2 = os.path.join(BIG, "reads_2.fq")
+    defaults = {}     # the runs the routes are held to: args, SAM, reads
     for tag, args, n_reads in (("se", [idx, se], 100000),
                                ("pe", [idx, r1, r2], 40000)):
         path = os.path.join(BIG, f"port_{tag}.sam")
@@ -553,6 +838,7 @@ def real_size():
                                f"timed run")
         say(f"verify_{tag}", reads=n_reads, seconds=dt,
             verified_chunks=n_ok)
+        defaults[tag] = (args, path, n_reads)
     # diff subsets against the host engine of the JAX package's CLI
     t0 = time.perf_counter()
     subs = []
@@ -578,6 +864,72 @@ def real_size():
                                f"({mine} vs {host})")
         say(f"diff_{tag}", records=len(a) - 1, identical=True,
             seconds=time.perf_counter() - t0)
+    return defaults
+
+
+def long_reads():
+    """The long-read runs: each timed, served on the device
+    (host_routed_reads 0, its chunk in the L=256 or L=512 seeding
+    bucket), its first N_DIFF_LONG reads byte-identical to
+    ``bwamem_tpu.cli mem --engine host``.  Returns the runs the routes
+    are held to."""
+    idx = os.path.join(BIG, "genome.fa")
+    defaults = {}
+    for tag, sub, files, n_reads, bucket in LONG_RUNS:
+        paths = [os.path.join(BIG, sub, f) for f in files]
+        path = os.path.join(BIG, sub, f"port_{tag}.sam")
+        err, dt = run_mem([idx] + paths, path)
+        stats = device_stats(err)
+        if stats.get("host_routed_reads", 0) or not stats.get(bucket):
+            raise RuntimeError(f"long reads {tag}: not served in {bucket} "
+                               f"on the device: {stats}")
+        n = N_DIFF_LONG // len(paths)
+        subs = [head_fastq(p, os.path.join(BIG, sub, f"sub_{tag}_{m}.fq"), n)
+                for m, p in enumerate(paths)]
+        mine = os.path.join(BIG, sub, f"diff_port_{tag}.sam")
+        host = os.path.join(BIG, sub, f"diff_host_{tag}.sam")
+        _, dt_sub = run_mem([idx] + subs, mine)
+        t1 = time.perf_counter()
+        host_mem([idx] + subs, host)
+        dt_host = time.perf_counter() - t1
+        if sam_body(mine) != sam_body(host):
+            raise RuntimeError(f"long reads {tag}: port and host engine "
+                               f"differ ({mine} vs {host})")
+        say(f"long_{tag}", reads=n_reads, seconds=dt,
+            reads_per_s=n_reads / dt, stats=stats, diffed_reads=n * len(paths),
+            identical=True, diff_seconds=dt_sub, host_seconds=dt_host)
+        defaults[tag] = ([idx] + paths, path, n_reads)
+    return defaults
+
+
+def route_goldens(route, env):
+    """The SE and PE goldens through a route of the flat path."""
+    t0 = time.perf_counter()
+    out = os.path.join(HERE, ".smoke_data")
+    stats = {}
+    for tag, args, golden in GOLDENS:
+        if tag == "se_aM":
+            continue
+        err = check_golden(args, os.path.join(out, f"smoke_{route}_{tag}.sam"),
+                           golden, env)
+        stats[tag] = device_stats(err)
+    say(f"goldens_{route}", identical=["golden_se.sam", "golden_pe.sam"],
+        stats=stats, seconds=time.perf_counter() - t0)
+
+
+def route_real_size(route, env, defaults):
+    """The 100k SE 101 bp run and the 2x150 bp run through a route,
+    timed, each byte-identical to the default route's SAM."""
+    for tag in ("se", "pe150"):
+        args, want, n_reads = defaults[tag]
+        path = os.path.join(BIG, f"{route}_{tag}.sam")
+        err, dt = run_mem(args, path, env)
+        if sam_body(path) != sam_body(want):
+            raise RuntimeError(f"{route} {tag}: output differs from the "
+                               f"default route ({path} vs {want})")
+        say(f"{route}_{tag}", reads=n_reads, seconds=dt,
+            reads_per_s=n_reads / dt, identical_to_default=True,
+            stats=device_stats(err))
 
 
 def records(path):

@@ -257,3 +257,191 @@ def test_mem_cuda_trace_matches_golden(cuda, data_dir, flags, reads, golden,
         want = [ln for ln in f.read().split("\n") if not ln.startswith("@PG")]
     assert out == want
     assert _kernels.EXTEND2.launches > 0 and _kernels.GLOBAL2.launches > 0
+
+
+# ---- the long buckets, the round route and the row builder ----
+
+def _long_queries(bns, n, L, seed):
+    """n reads of L/2..L bp cut from the bundled genome (both strands),
+    packed; the first four exact full-length copies (qe == L), the rest
+    with substitutions and, in a third of them, an N."""
+    from bwamem_tpu.index.bntseq import get_seq
+    rng = np.random.default_rng(seed)
+    q = np.full((n, L), 4, np.int8)
+    qlen = np.zeros(n, np.int32)
+    for i in range(n):
+        ln = L if i < 4 else int(rng.integers(L // 2, L + 1))
+        beg = int(rng.integers(0, 2 * bns.l_pac - ln))
+        if beg < bns.l_pac < beg + ln:
+            beg = bns.l_pac
+        s = get_seq(bns.l_pac, bns.pac, beg, beg + ln).astype(np.int8)
+        if i >= 4:
+            mut = rng.random(ln) < 0.01
+            s[mut] = rng.integers(0, 4, int(mut.sum()))
+            if rng.random() < 0.33:
+                s[int(rng.integers(0, ln))] = 4
+        q[i, :ln] = s
+        qlen[i] = ln
+    return _pk(q), qlen
+
+
+@pytest.mark.parametrize("L,M", [(128, 16), (256, 16), (512, 16), (256, 2)],
+                         ids=["L128", "L256", "L512", "L256_m2"])
+def test_iter_step_kernel_matches_plain(engine, dfm, L, M):
+    """bm_smem_iter_step against smem_iter_step_plain on all 17 outputs:
+    pass 1 from random positions, the re-seeding test, pass 2."""
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.smem import (smem_iter_step_cuda,
+                                           smem_iter_step_plain)
+    eng, bns = engine
+    B = 512
+    qp, qlen = _long_queries(bns, B, L, L + M)
+    rng = np.random.default_rng(L)
+    x = (rng.random(B) * qlen).astype(np.int32)
+    x[:4] = 0
+    act = rng.random(B) < 0.9
+    T = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(eng.device)
+    args = (dfm, T(qp), T(qlen), T(x),
+            T(np.where(rng.random(B) < 0.2, 2, 1).astype(np.int64)), T(act),
+            T(np.minimum(29, qlen).astype(np.int32)),
+            T(np.full(B, 10, np.int32)), L, M, min(12, M))
+    n0 = _kernels.SMEM1.launches
+    k = smem_iter_step_cuda(*args)
+    torch.cuda.synchronize()
+    assert _kernels.SMEM1.launches == n0 + 1
+    p = smem_iter_step_plain(*args)
+    for i, (a, b) in enumerate(zip(k, p)):
+        assert torch.equal(a.long(), b.long()), i
+    assert bool(k[8].any())                   # some lanes re-seed
+    if M == 2:
+        assert bool(k[7].any())
+
+
+@pytest.mark.parametrize("L", [256, 512])
+def test_superstep_kernel_long_buckets(engine, L):
+    """The superstep kernel at the L=256 and L=512 buckets, with their
+    stream caps, against its plain version."""
+    from bwamem_tpu_torch.ops.smem import superstep_cuda, superstep_plain
+    eng, bns = engine
+    B, M, oc = 256, 16, (48 if L == 256 else 64)
+    qp, qlen = _long_queries(bns, B, L, L)
+    T = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(eng.device)
+    args = (eng.dfm, T(qp), T(qlen),
+            torch.ones(B, dtype=torch.int64, device=eng.device),
+            torch.ones(B, dtype=torch.bool, device=eng.device),
+            T(np.minimum(29, qlen).astype(np.int32)),
+            torch.full((B,), 10, dtype=torch.int32, device=eng.device), L,
+            M, oc)
+    k, p = superstep_cuda(*args), superstep_plain(*args)
+    assert torch.equal(k[5], p[5])
+    ok = ~p[5]
+    assert torch.equal(k[4][ok], p[4][ok])
+    slot = (torch.arange(oc, device=eng.device) < p[4].unsqueeze(1)) \
+        & ok.unsqueeze(1)
+    for a, b in zip(k[:4], p[:4]):
+        assert torch.equal(a[slot], b[slot])
+    assert bool((k[3][slot] == L).any())      # full-length matches
+
+
+@pytest.mark.parametrize("LQ,LT", [(256, 800), (512, 1056)])
+def test_extension_kernel_long_buckets(engine, LQ, LT):
+    """bm_extend_lr and bm_extend2 at the LQ=256 and LQ=512 buckets
+    against their plain versions, on lanes whose sides reach LQ."""
+    from bwamem_tpu_torch.ops.ksw import (extend2_cuda, extend2_plain,
+                                          extend_lr_cuda, extend_lr_plain)
+    eng, _ = engine
+    B = 256
+    ql, tl = {}, {}
+    rows = {}
+    rng = None
+    for side, seed in (("l", 11), ("r", 12)):
+        qb, tb, ql[side], tl[side], rng = _sw_lanes(seed + LQ, B, LQ, LT)
+        rows[side] = (_pk(qb), _pk(tb))
+    T = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(eng.device)
+    slen = rng.integers(19, 40, B).astype(np.int32)
+    qb0 = ql["l"].astype(np.int32)
+    lquery = (qb0 + slen + ql["r"]).astype(np.int32)
+    rb = rng.integers(10 ** 4, 10 ** 6, B).astype(np.int64)
+    args = (T(rows["l"][0]), T(rows["l"][1]), T(ql["l"]), T(tl["l"]),
+            T(rows["r"][0]), T(rows["r"][1]), T(ql["r"]), T(tl["r"]),
+            eng._mat_dev(_opt()), 6, 1, 6, 1, 100, 5, 5, 100,
+            T(rng.integers(19, 60, B).astype(np.int32)), T(qb0), T(rb),
+            T(rb - tl["l"]), T(lquery), T(slen), LQ, LT)
+    for a, b in zip(extend_lr_cuda(*args), extend_lr_plain(*args)):
+        assert torch.equal(a, b)
+    args2 = (T(rows["l"][0]), T(rows["l"][1]), T(ql["l"]), T(tl["l"]),
+             eng._mat_dev(_opt()), 6, 1, 6, 1,
+             T(rng.choice([100, 13, 3], B).astype(np.int32)),
+             T(rng.choice([5, 10], B).astype(np.int32)), 100,
+             T(rng.integers(1, 120, B).astype(np.int32)), LQ, LT)
+    for a, b in zip(extend2_cuda(*args2), extend2_plain(*args2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("LQ,LT", [(128, 544), (256, 800), (512, 1056)])
+def test_build_rows_kernel_matches_plain(engine, data_dir, LQ, LT):
+    """bm_build_rows against its plain version and the native packer's
+    rows, for the seeds of 200 bundled reads."""
+    from bwamem_tpu.core import nfinalize
+    from bwamem_tpu.core.pipeline import encode_read
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.extbuild import (build_rows_cuda,
+                                               build_rows_plain, pac_tensor,
+                                               reads_matrix)
+    eng, bns = engine
+    opt = _opt()
+    reads = _reads(data_dir, 200)
+    for r in reads:
+        encode_read(r)
+    flat = eng.chain_batch(opt, reads).flat
+    pk = nfinalize.pack_extlr_native(opt, bns.l_pac, bns.pac, reads, flat,
+                                     LQ, LT)
+    g = np.nonzero(pk["served"] == 0)[0]
+    rid = nfinalize.seed_read_ids(flat, len(reads))
+    T = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(eng.device)
+    args = (T(reads_matrix([r.seq_nt4 for r in reads], LQ)),
+            pac_tensor(bns.pac).to(eng.device), bns.l_pac, T(rid[g]),
+            T(pk["sqb"][g]), T(pk["slv"][g]), T(pk["srb"][g]),
+            T(pk["rmax0"][g]), T((pk["srb"] + pk["slv"] + pk["rlt"])[g]),
+            T(pk["lqv"][g]), LQ, LT)
+    n0 = _kernels.BUILD.launches
+    k = build_rows_cuda(*args)
+    torch.cuda.synchronize()
+    assert _kernels.BUILD.launches == n0 + 1
+    p = build_rows_plain(*args)
+    for a, b, key in zip(k, p, ("lq_pk", "lt_pk", "rq_pk", "rt_pk")):
+        assert torch.equal(a, b)
+        assert np.array_equal(a.cpu().numpy(), pk[key][g])
+
+
+@pytest.mark.parametrize("route", ["BWAMEM_TPU_SUPERSTEP=0",
+                                   "BWAMEM_TPU_ONCHIP_EXT=1"],
+                         ids=["superstep0", "onchip_ext"])
+@pytest.mark.parametrize("reads,golden", [
+    (["reads_se.fq"], "golden_se.sam"),
+    (["reads_1.fq", "reads_2.fq"], "golden_pe.sam"),
+], ids=["se", "pe"])
+def test_mem_cuda_routes_match_golden(cuda, data_dir, monkeypatch, route,
+                                      reads, golden, capsys):
+    """The round-per-launch seeding route and the on-device extension
+    rows on the card: the goldens, through their own kernels."""
+    from bwamem_tpu_torch import cli
+    from bwamem_tpu_torch.ops import _kernels
+    key, val = route.split("=")
+    monkeypatch.setenv(key, val)
+    monkeypatch.setenv("BWAMEM_TPU_MIN_SEED_WAVE", "4")
+    _kernels.reset_counts()
+    assert cli.main_mem(["--device", "cuda",
+                         os.path.join(data_dir, "genome.fa")]
+                        + [os.path.join(data_dir, r) for r in reads]) == 0
+    out = [ln for ln in capsys.readouterr().out.split("\n")
+           if not ln.startswith("@PG")]
+    with open(os.path.join(data_dir, golden)) as f:
+        want = [ln for ln in f.read().split("\n") if not ln.startswith("@PG")]
+    assert out == want
+    k = _kernels.SMEM1 if key == "BWAMEM_TPU_SUPERSTEP" else _kernels.BUILD
+    assert k.launches > 0

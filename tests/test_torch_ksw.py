@@ -31,7 +31,7 @@ def _packrow(seq, width):
     return buf[0::2] | (buf[1::2] << np.int8(4))
 
 
-def _synthetic(seed):
+def _synthetic(seed, B=B, LQ=LQ, LT=LT):
     """B lanes of related query/target pairs: mismatches, short indels,
     ~10% empty sides."""
     rng = np.random.default_rng(seed)
@@ -61,7 +61,7 @@ def _synthetic(seed):
     lanes["qb"] = rng.integers(0, 100, B).astype(np.int32)
     lanes["rb"] = rng.integers(0, 10 ** 6, B).astype(np.int64)
     lanes["rmax0"] = lanes["rb"] - rng.integers(0, 300, B)
-    lanes["lquery"] = rng.integers(50, 150, B).astype(np.int32)
+    lanes["lquery"] = rng.integers(50, LQ + 22, B).astype(np.int32)
     lanes["slen"] = rng.integers(19, 40, B).astype(np.int32)
     return lanes
 
@@ -139,6 +139,35 @@ def test_extend_lr_matches_jax(data_dir, case, w0, zdrop):
               for k in ("sc", "qb", "rb", "rmax0", "lquery", "slen")),
             LQ=LQ, LT=LT)
         assert any(not torch.equal(a, b) for a, b in zip(got, nz))
+
+
+@pytest.mark.parametrize("w0,zdrop", [(100, 100), (3, 0)])
+def test_extend_lr_long_bucket_matches_jax(w0, zdrop):
+    """The LQ=256 query bucket (target up to LT=800, the engine's long
+    buckets) against the JAX package at the same shapes."""
+    from bwamem_tpu.config import fill_scmat
+    from bwamem_tpu.ops.ksw import ksw_extend_lr_batched as jax_lr
+    from bwamem_tpu_torch.ops.ksw import ksw_extend_lr_batched
+    n, lq, lt = 24, 256, 800
+    x = _synthetic(256 + w0, B=n, LQ=lq, LT=lt)
+    mat = np.asarray(fill_scmat(1, 4), np.int32)
+    names = ("lq", "lt", "llq", "llt", "rq", "rt", "rlq", "rlt")
+    tail = ("sc", "qb", "rb", "rmax0", "lquery", "slen")
+    want = jax_lr(*(jnp.asarray(x[k]) for k in names), jnp.asarray(mat),
+                  6, 1, 6, 1, w0, 5, 5, zdrop,
+                  *(jnp.asarray(x[k]) for k in tail), LQ=lq, LT=lt,
+                  packed=True)
+    got = ksw_extend_lr_batched(
+        *(torch.from_numpy(np.ascontiguousarray(x[k])) for k in names),
+        torch.from_numpy(mat.astype(np.int8)), 6, 1, 6, 1, w0, 5, 5, zdrop,
+        *(torch.from_numpy(np.ascontiguousarray(x[k])) for k in tail),
+        LQ=lq, LT=lt)
+    for name, g, w in zip(("score", "truesc", "qb", "rb", "qe", "re",
+                           "aw0", "aw1"), got, want):
+        np.testing.assert_array_equal(g.numpy().astype(np.int64),
+                                      np.asarray(w, np.int64),
+                                      err_msg=name)
+    assert (np.concatenate([x["llq"], x["rlq"]]) > 128).any()
 
 
 def _pairs(seed, n, lq, lt, tlen_near_qlen=False):

@@ -215,3 +215,136 @@ def test_cuda_device_required(data_dir):
     ref = os.path.join(data_dir, "genome.fa")
     fq = os.path.join(data_dir, "reads_se1.fq")
     assert run_mem(cli, ["--device", "cuda", ref, fq])[0] == 1
+
+
+def _genome(data_dir):
+    """The bundled genome's contigs as ACGTN byte strings."""
+    contigs, cur = [], []
+    with open(os.path.join(data_dir, "genome.fa"), "rb") as f:
+        for ln in f:
+            if ln.startswith(b">"):
+                if cur:
+                    contigs.append(b"".join(cur))
+                cur = []
+            else:
+                cur.append(ln.strip())
+    contigs.append(b"".join(cur))
+    return contigs
+
+
+def _long_read_files(tmp_path, data_dir):
+    """Long reads from the bundled genome, made from one numpy seed: 1%
+    substitutions, an N in a third of them, half on the reverse strand.
+    Returns {name: [fastq paths]}: ``se_150_250`` (24 reads of 150 bp and
+    24 of 250 bp: the L=256 bucket), ``se_300_600`` (reads of 300-512 bp,
+    two exact 512 bp copies, and one 600 bp read past the L=512 bucket)
+    and ``pe_2x150`` (40 pairs of 2x150 bp, inserts ~400 bp)."""
+    rng = np.random.default_rng(150)
+    contigs = _genome(data_dir)
+    comp = bytes.maketrans(b"ACGTN", b"TGCAN")
+
+    def frag(n):
+        c = contigs[int(rng.integers(0, len(contigs)))]
+        pos = int(rng.integers(0, len(c) - n))
+        return bytearray(c[pos:pos + n])
+
+    def noisy(s, exact=False):
+        if not exact:
+            for j in np.nonzero(rng.random(len(s)) < 0.01)[0]:
+                s[j] = b"ACGT"[int(rng.integers(0, 4))]
+            if rng.random() < 0.33:
+                s[int(rng.integers(0, len(s)))] = ord("N")
+        return bytes(s) if rng.random() < 0.5 else bytes(s).translate(
+            comp)[::-1]
+
+    def write(name, seqs):
+        p = tmp_path / name
+        p.write_text("".join(f"@r{k}\n{s.decode()}\n+\n{'I' * len(s)}\n"
+                             for k, s in enumerate(seqs)))
+        return str(p)
+    se = [noisy(frag(n)) for n in [150] * 24 + [250] * 24]
+    xl = ([noisy(frag(n)) for n in (300, 350, 400, 450, 500, 512)]
+          + [noisy(frag(512), exact=True) for _ in range(2)]
+          + [noisy(frag(600))])
+    r1, r2 = [], []
+    for _ in range(40):
+        f = frag(int(rng.integers(350, 450)))
+        r1.append(noisy(f[:150]))
+        r2.append(noisy(bytearray(bytes(f[-150:]).translate(comp)[::-1])))
+    return {"se_150_250": [write("long_se.fq", se)],
+            "se_300_600": [write("long_xl.fq", xl)],
+            "pe_2x150": [write("long_1.fq", r1), write("long_2.fq", r2)]}
+
+
+# what each long-read input must show in the stats: its seeding bucket
+# and its reads past 512 bp
+_LONG_STATS = {"se_150_250": ("chunks_L256", 0),
+               "se_300_600": ("chunks_L512", 1),
+               "pe_2x150": ("chunks_L256", 0)}
+
+
+@pytest.fixture(scope="module")
+def long_reads(tmp_path_factory, data_dir):
+    """The long-read inputs and the host engine's SAM of each."""
+    from bwamem_tpu import cli as jax_cli
+    tmp = tmp_path_factory.mktemp("long")
+    files = _long_read_files(tmp, data_dir)
+    ref = os.path.join(data_dir, "genome.fa")
+    host = {}
+    for name, paths in files.items():
+        ret, host[name] = run_mem(jax_cli, ["--engine", "host", ref]
+                                  + paths)
+        assert ret == 0
+    return ref, files, host
+
+
+@pytest.mark.parametrize("name", sorted(_LONG_STATS))
+def test_long_reads_match_host_engine(long_reads, name):
+    """150-600 bp reads through --device cpu: the chunk seeds in its
+    length bucket (L=256, L=512), extends at LQ=256/512, and only reads
+    past 512 bp take the host oracle; the SAM equals the host engine's."""
+    from bwamem_tpu_torch import cli
+    ref, files, host = long_reads
+    err = io.StringIO()
+    ret, got = run_mem(cli, ["--device", "cpu", ref] + files[name],
+                       stderr=err)
+    assert ret == 0
+    assert got == host[name]
+    st = device_stats(err.getvalue())
+    bucket, n_host = _LONG_STATS[name]
+    assert st[bucket] == 1
+    assert st.get("host_routed_reads", 0) == n_host
+    assert st.get("ext_host_lanes", 0) == 0
+
+
+@pytest.mark.parametrize("route", ["BWAMEM_TPU_SUPERSTEP=0",
+                                   "BWAMEM_TPU_ONCHIP_EXT=1"],
+                         ids=["superstep0", "onchip_ext"])
+@pytest.mark.parametrize("name", ["golden_se", "golden_pe"]
+                         + sorted(_LONG_STATS))
+def test_routes_match_default(long_reads, data_dir, monkeypatch, route,
+                              name):
+    """The round-per-launch seeding route and the on-device extension
+    rows give the default route's SAM: the goldens and the long-read
+    inputs (whose default SAM equals the host engine's)."""
+    from bwamem_tpu_torch import cli
+    ref, files, host = long_reads
+    if name.startswith("golden"):
+        reads = (["reads_se.fq"] if name == "golden_se"
+                 else ["reads_1.fq", "reads_2.fq"])
+        paths = [os.path.join(data_dir, r) for r in reads]
+        want = load_golden(os.path.join(data_dir, name + ".sam"))
+    else:
+        paths, want = files[name], host[name]
+    key, val = route.split("=")
+    monkeypatch.setenv(key, val)
+    # rounds with as few as 4 live reads take the iterator-step launch
+    # (the inputs are a few dozen reads)
+    monkeypatch.setenv("BWAMEM_TPU_MIN_SEED_WAVE", "4")
+    err = io.StringIO()
+    ret, got = run_mem(cli, ["--device", "cpu", ref] + paths, stderr=err)
+    assert ret == 0
+    assert got == want
+    if key == "BWAMEM_TPU_SUPERSTEP":
+        st = device_stats(err.getvalue())
+        assert st["n_smem"] > 0 and st["n_sa"] > 0
