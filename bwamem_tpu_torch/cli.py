@@ -10,7 +10,8 @@ none; ``cpu`` runs their plain PyTorch versions.  BWAMEM_TPU_CHUNK_BP
 sets the chunk size in bases, as in ``bwamem_tpu.cli``.  The mesh,
 table-sharding, multi-host and profiler options are not ported yet and
 are refused.  Every other bwa command runs without JAX in
-``bwamem_tpu.cli`` already.
+``bwamem_tpu.cli`` already.  The port imports nothing of that package:
+the host modules it needs are its own copies.
 """
 
 import json
@@ -18,21 +19,39 @@ import math
 import os
 import sys
 
-from bwamem_tpu.cli import PACKAGE_VERSION, set_rg
-
+PACKAGE_VERSION = "0.7.8-r455"  # output-compat version (top.c:10)
 _REFUSED = ("mesh", "shard-tables", "distributed", "profile")
+
+
+def set_rg(s: str):
+    """bwa_set_rg (software/bwa.c:375-402): unescape and extract ID."""
+    rg_line = (s.replace("\\t", "\t").replace("\\n", "\n")
+               .replace("\\r", "\r").replace("\\\\", "\\"))
+    if not rg_line.startswith("@RG"):
+        sys.stderr.write("[E::bwa_set_rg] the read group line is not started"
+                         " with @RG\n")
+        return None, None
+    idx = rg_line.find("\tID:")
+    if idx < 0:
+        sys.stderr.write("[E::bwa_set_rg] no ID at the read group line\n")
+        return None, None
+    p = idx + 4
+    q = p
+    while q < len(rg_line) and rg_line[q] not in "\t\n":
+        q += 1
+    return rg_line, rg_line[p:q]
 
 
 def main_mem(argv):
     import getopt as _getopt
-    from bwamem_tpu.config import (MemOptions, fill_scmat, MEM_F_PE,
+    from bwamem_tpu_torch.config import (MemOptions, fill_scmat, MEM_F_PE,
                                    MEM_F_NOPAIRING, MEM_F_ALL,
                                    MEM_F_NO_MULTI, MEM_F_NO_RESCUE,
                                    MEM_F_NO_EXACT)
-    from bwamem_tpu.index import load_index
-    from bwamem_tpu.io.native import make_chunk_reader
-    from bwamem_tpu.core import pair as pe
-    from bwamem_tpu.core.sam import sam_header
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.io.native import make_chunk_reader
+    from bwamem_tpu_torch.core import pair as pe
+    from bwamem_tpu_torch.core.sam import sam_header
 
     opt = MemOptions()
     copy_comment = False
@@ -181,7 +200,7 @@ def main_mem(argv):
     # in-process, so none is made
     pool = None
     if opt.n_threads > 1 and verbose < 4:
-        from bwamem_tpu.core.mt import WorkerPool
+        from bwamem_tpu_torch.core.mt import WorkerPool
         pool = WorkerPool(fm, bns, pac, opt.n_threads,
                           index_prefix=args[0])
 
@@ -241,7 +260,7 @@ def main_mem(argv):
             for r in reads:
                 out.write(r.sam)
 
-        from bwamem_tpu.core.pipeline import process_chunk_stream
+        from bwamem_tpu_torch.core.pipeline import process_chunk_stream
         process_chunk_stream(opt, fm, bns, pac, chunk_iter(), pes0,
                              rg_id or "", engine, verbose, pool=pool,
                              on_start=on_start, emit=emit)

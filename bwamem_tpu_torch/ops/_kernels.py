@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("smem.cu", "sa.cu", "extend.cu", "global.cu", "align.cu",
-           "extbuild.cu")
+           "extbuild.cu", "occ.cu", "microbench.cu")
 HEADERS = ("fm.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -70,7 +70,19 @@ SMEM1 = Kernel("smem1_step", "bwamem_tpu_torch/csrc/smem.cu",
                "bwamem_tpu/ops/pallas_bigsmem.py:612")
 BUILD = Kernel("build_rows", "bwamem_tpu_torch/csrc/extbuild.cu",
                "bwamem_tpu/ops/pallas_extbuild.py:245")
-KERNELS = (SMEM, SA, EXTEND, EXTEND2, GLOBAL2, ALIGN2, SMEM1, BUILD)
+GATHER = Kernel("gather_rows", "bwamem_tpu_torch/csrc/occ.cu",
+                "bwamem_tpu/ops/pallas_occ.py:90, "
+                "bwamem_tpu/ops/pallas_onehot.py:68 and "
+                "tools/probe_mosaic_features.py:62,114")
+OCC4 = Kernel("occ4", "bwamem_tpu_torch/csrc/occ.cu",
+              "bwamem_tpu/ops/pallas_occ.py:90 (occ4_via_pallas)")
+CHAIN = Kernel("row_chain", "bwamem_tpu_torch/csrc/microbench.cu",
+               "tools/microbench_dmawave.py:109 and "
+               "tools/microbench_bigsmem.py:165,179,261")
+LOOP = Kernel("affine_loop", "bwamem_tpu_torch/csrc/microbench.cu",
+              "tools/microbench_palloop.py:51")
+KERNELS = (SMEM, SA, EXTEND, EXTEND2, GLOBAL2, ALIGN2, SMEM1, BUILD, GATHER,
+           OCC4, CHAIN, LOOP)
 
 
 def reset_counts() -> None:
@@ -98,6 +110,10 @@ _SIGNATURES = {
                          + [_I, _I, _I, _VP, _VP, _VP, _VP],
     "bm_build_rows": [_VP, _I, _VP, _I64] + [_VP] * 7 + [_I, _I, _I]
                      + [_VP] * 5,
+    "bm_gather_rows": [_VP, _I64, _I, _VP, _I64, _I, _VP, _VP],
+    "bm_occ4": [_VP, _I64, _I64, _VP, _I64, _VP, _VP],
+    "bm_row_chain": [_VP, _I64, _I, _VP, _I64, _I, _I, _I, _VP, _VP],
+    "bm_affine_loop": [_VP, _I64, _I, _VP, _VP],
 }
 
 _lib = None

@@ -57,7 +57,7 @@ from typing import List
 import numpy as np
 import torch
 
-from bwamem_tpu.core import nfinalize
+from bwamem_tpu_torch.core import nfinalize
 
 from .extbuild import extend_lr_onchip, pac_tensor, reads_matrix
 from .fm import DeviceFmIndex
@@ -71,7 +71,7 @@ def _default_min_wave() -> int:
     """Below this many live requests a round goes to the scalar oracle:
     64 with the native C++ oracle (~50 us an extension), 8 with the pure
     Python one (bwamem_tpu/ops/engine.py:30-39)."""
-    from bwamem_tpu.oracle.ksw import _native
+    from bwamem_tpu_torch.oracle.ksw import _native
     return 64 if _native() else 8
 
 
@@ -88,7 +88,7 @@ def _pack4(buf: np.ndarray) -> np.ndarray:
 def _chains_from_flat(flat, n_reads):
     """Per-read Chain-object lists from the flat chain arrays (the input
     of the generator path)."""
-    from bwamem_tpu.core.chain import Chain
+    from bwamem_tpu_torch.core.chain import Chain
     chain_off, seed_off, s_rbeg, s_qbeg, s_len = flat
     rb_l, qb_l, ln_l = (np.asarray(s_rbeg).tolist(),
                         np.asarray(s_qbeg).tolist(),
@@ -223,8 +223,8 @@ class TorchSeedingEngine:
         seed dump (bwamem.c:478-479): every seed of a read in array
         order, the ones bridging the forward-reverse boundary included,
         which the native chainer then drops (native/chain.cpp:78)."""
-        from bwamem_tpu.core.chain import mem_chain
-        from bwamem_tpu.core.pipeline import encode_read
+        from bwamem_tpu_torch.core.chain import mem_chain
+        from bwamem_tpu_torch.core.pipeline import encode_read
         for r in reads:
             encode_read(r)
         lens = [len(r.seq_nt4) for r in reads]
@@ -323,7 +323,7 @@ class TorchSeedingEngine:
         kernel over every seed, native region building), or, with traces
         or for a seed-rich chunk, the generators of align1_core_gen
         through drive_waves (JAX engine.py:419-438)."""
-        from bwamem_tpu.core.pipeline import align1_core_gen
+        from bwamem_tpu_torch.core.pipeline import align1_core_gen
         prefetched = isinstance(chains, tuple)
         packed = None
         if prefetched:                     # prefetch_batch output
@@ -515,7 +515,7 @@ class TorchSeedingEngine:
         each round gathers the live requests and serves each type with
         batched launches; a round with fewer than MIN_WAVE requests goes
         to the scalar oracle.  Returns each generator's return value."""
-        from bwamem_tpu.core.swdrive import serve_host
+        from bwamem_tpu_torch.core.swdrive import serve_host
         results: List = [None] * len(gens)
         live = {}
 
@@ -557,7 +557,7 @@ class TorchSeedingEngine:
     def _host_lanes(self, opt, reqs, fits, tag, outs):
         """Serve the requests that do not fit the kernel's shapes on the
         scalar oracle, counted; returns the indices of those that do."""
-        from bwamem_tpu.core.swdrive import serve_host
+        from bwamem_tpu_torch.core.swdrive import serve_host
         dev_idx = []
         for i, r in enumerate(reqs):
             if fits(r):

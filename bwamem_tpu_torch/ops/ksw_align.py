@@ -20,7 +20,7 @@ a second batched pass.
 import numpy as np
 import torch
 
-from bwamem_tpu.oracle import ksw as oksw
+from bwamem_tpu_torch.oracle import ksw as oksw
 
 from . import _kernels
 
@@ -161,8 +161,8 @@ def align2_wave(opt, reqs, wave_width: int, mat, lq_cap: int = 128,
     position, go to the scalar oracle; `count(tag, n)` hears of them.
     `timed(fn)` wraps each group's fetch.  Returns one KswR per
     request."""
-    from bwamem_tpu.core.swdrive import serve_host
-    from bwamem_tpu.oracle.ksw import KswR
+    from bwamem_tpu_torch.core.swdrive import serve_host
+    from bwamem_tpu_torch.oracle.ksw import KswR
 
     n = len(reqs)
     outs = [None] * n

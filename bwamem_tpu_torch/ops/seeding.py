@@ -27,7 +27,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from bwamem_tpu.config import MEM_F_NO_EXACT
+from bwamem_tpu_torch.config import MEM_F_NO_EXACT
 
 from .fm import DeviceFmIndex, sa_lookup
 from .smem import smem_iter_step, smem_superstep_sa
@@ -126,7 +126,7 @@ class BatchedSeeder:
                      split_len: int, split_width: int):
         """One iterator step on the host oracle (pass 1 + split + pass 2
         + merge) for a lane that overflowed the device buffers."""
-        from bwamem_tpu.oracle.smem import smem1
+        from bwamem_tpu_torch.oracle.smem import smem1
         oret, matches = smem1(self.fm_host, query, x, start_width)
         if not matches:
             return oret, matches
@@ -344,7 +344,7 @@ class BatchedSeeder:
             n_fresh = int((~sel).sum())
             if n_fresh:
                 fkeys = keys[~sel]
-                from bwamem_tpu.oracle import nsmem
+                from bwamem_tpu_torch.oracle import nsmem
                 # few keys: one native host walk beats a padded device
                 # dispatch
                 fv = (nsmem.sa_lookup_batch_native(fm_host, fkeys)
@@ -468,7 +468,7 @@ class _SliceRun:
             self.sw_d, L=sdr.L, M=sdr.M, M_OUT=sdr.m_out)
 
     def process(self, res) -> None:
-        from bwamem_tpu.oracle.smem import smem1
+        from bwamem_tpu_torch.oracle.smem import smem1
         sdr = self.seeder
         (ret, n_mem, m0, m1, ms, mqb, mqe, over1, need2, _, n2, s0, s1,
          ss, sqb, sqe, over2) = res

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (bwamem_tpu_torch) on one GPU.
 
     python3 chip_smoke.py           # all phases, one GPU
-    python3 chip_smoke.py --quick   # phases 1-3 on the bundled genome only
+    python3 chip_smoke.py --quick   # phases 1-3 and 5 on the bundled genome
 
 Phases, each printing one line with its own numbers and seconds:
 
@@ -26,6 +26,8 @@ Phases, each printing one line with its own numbers and seconds:
    are held against their plain versions on their first 1,024 lanes
    (PLAIN_LANES), the plain versions being slow at full width.  Integer
    outputs: the tolerance is zero;
+   Every record carries its bound: bytes over 3.35 TB/s or 32-bit lane
+   operations over 33.5 T/s, whichever is longer (see bound());
 3. goldens: ``mem`` SE, SE -a -M and PE on tests/data through
    ``bwamem_tpu_torch.cli --device cuda``, byte-identical to the goldens
    (without @PG), then the -v 4 SE, -v 4 PE and -v 5 traces of the
@@ -52,16 +54,32 @@ Phases, each printing one line with its own numbers and seconds:
    human-scale genome for the time limit), byte-identical to
    ``--engine host``.
 
+5. ``python -m bwamem_tpu_torch.microbench all`` in this process, with
+   the genome's occ table: the gather variants and occ4 at 2 x LANES
+   and 2 x LANES x M ids, the chain sweep (4 MiB / 64 MiB / 4 GiB random
+   tables of 16- and 128-word rows and the genome's table; dep at K = 1,
+   2, 4, 8, every other mode at K = 1; 8,192 lanes x 256 steps), the
+   loop and the TPU probe's gathers; every line printed and kept in
+   .smoke_data/microbench.jsonl.  Each kernel call the sweep makes is
+   held against its plain version on the same inputs at full width,
+   tolerance zero (SweepCheck), with its bound; the sweep's own
+   ``device_ms`` (calls captured in a CUDA graph and replayed, without
+   the host's launch cost that CUDA events around small calls include)
+   and for gather_rows the time of index_select, its library call.
+
 Launch counts are zeroed just before each path and read just after: the
 default flat route (goldens, real size, long reads: superstep, SA walk
 and extend_lr launched, at L=256, L=512, LQ=256 and LQ=512 too), the
 SUPERSTEP=0 route (smem1_step, SA walk, extend_lr), the ONCHIP_EXT=1
 route (superstep, SA walk, build_rows, extend_lr) and the generator wave
-path (extend2, global2, align2).  The last two lines are the kernels'
-JSON record (launches, per-bucket launches and times) and the result
-JSON; any failure exits non-zero without them.
+path (extend2, global2, align2), and the microbench sweep (gather_rows,
+occ4, row_chain, affine_loop).  The last three lines are nvidia-smi's
+name and power limit, the kernels' JSON record (launches, times, bounds,
+per-bucket launches and times) and the result JSON; any failure exits
+non-zero without them.
 """
 
+import contextlib
 import io
 import json
 import os
@@ -171,6 +189,100 @@ def max_err(pairs):
     return err
 
 
+# A kernel's bound: the least time the card could take for its work, the
+# larger of its bytes over the HBM rate and its 32-bit lane operations
+# over the lane rate (the H100 SXM data sheet's peaks: 3.35 TB/s, and
+# 67 TFLOP/s float32 with an FMA counted as two).  Bytes
+# are each input and output once and 64 per distinct occ row that the
+# plain version gathered.  Operations are 96 per occ-row decode (8 BWT
+# words: mask, shifts, three ANDs, three popcounts, three adds), counted
+# once per distinct row for the FM walks (the plain versions run their
+# lanes in lock-step, so their gather counts include finished lanes) and
+# once per key for occ4; 10 per DP cell (H, E, F, their maxima) over the
+# lanes' bands as their lengths and band widths give them, before z-drop
+# exits and band narrowing, which only the data decide.
+HBM_BYTES_PER_S = 3.35e12
+LANE_OPS_PER_S = 33.5e12
+OCC_ROW_BYTES = 64
+OPS_PER_OCC_ROW = 96
+OPS_PER_CELL = 10
+
+
+def bound(n_bytes, ops):
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = ops / LANE_OPS_PER_S * 1e3
+    return dict(bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations",
+                bound_bytes=int(n_bytes), bound_ops=int(ops))
+
+
+def nbytes(items):
+    """Bytes of the tensors and arrays among items (others count 0)."""
+    total = 0
+    for t in items:
+        if hasattr(t, "element_size"):
+            total += t.numel() * t.element_size()
+        elif hasattr(t, "nbytes"):
+            total += int(t.nbytes)
+    return total
+
+
+def band_cells(qlen, tlen, w):
+    """DP cells of lanes' bands: row i < qlen covers the columns
+    [max(0, i - w), min(tlen, i + w + 1))."""
+    import numpy as np
+    shape = np.shape(qlen)
+    qlen, tlen, w = (np.broadcast_to(np.asarray(a, np.int64), shape)
+                     .reshape(-1, 1) for a in (qlen, tlen, w))
+    if not qlen.size:
+        return 0
+    i = np.arange(int(qlen.max()))[None]
+    span = np.minimum(tlen, i + w + 1) - np.maximum(0, i - w)
+    return int((np.clip(span, 0, None) * (i < qlen)).sum())
+
+
+class RowLog:
+    """The table rows a plain version fetched: which (``seen``) and how
+    many fetches (``fetched``)."""
+
+    def __init__(self, n_rows, device):
+        import torch
+        self.seen = torch.zeros(n_rows, dtype=torch.bool, device=device)
+        self.fetched = 0
+
+    def distinct(self):
+        return int(self.seen.sum())
+
+
+@contextlib.contextmanager
+def rows_fetched(n_rows, device):
+    """While open, every row that the plain versions fetch through
+    ops/fm.py's _rows (the FM walks, occ4, the row chains) is recorded in
+    the yielded RowLog."""
+    from bwamem_tpu_torch.ops import fm as tfm
+    log, fetch = RowLog(n_rows, device), tfm._rows
+
+    def spy(table, ids):
+        log.seen[ids.reshape(-1)] = True
+        log.fetched += ids.numel()
+        return fetch(table, ids)
+    tfm._rows = spy
+    try:
+        yield log
+    finally:
+        tfm._rows = fetch
+
+
+def fm_bound(d, plain, args, outs):
+    """The bound of an FM-walk kernel: its tensors in and out, and the
+    occ rows its plain version gathers on the same inputs."""
+    with rows_fetched(d.n_blocks, d.device) as log:
+        plain(*args)
+    rows = log.distinct()
+    return bound(nbytes(args) + nbytes(outs) + OCC_ROW_BYTES * rows,
+                 OPS_PER_OCC_ROW * rows)
+
+
 def head_fastq(src, dst, n):
     """The first n records of a FASTQ file."""
     with open(src) as f, open(dst, "w") as g:
@@ -190,7 +302,7 @@ def host_mem(args, out_path):
 
 
 def read_fastq_seqs(path, n):
-    from bwamem_tpu.index.bntseq import NT4_TABLE
+    from bwamem_tpu_torch.index.bntseq import NT4_TABLE
     import numpy as np
     seqs = []
     with open(path) as f:
@@ -207,14 +319,14 @@ def check_kernels(label, idx_prefix, fq, rec):
     """Phase 2 on one index: each kernel against its plain version."""
     import numpy as np
     import torch
-    from bwamem_tpu.config import MemOptions, fill_scmat
-    from bwamem_tpu.index import load_index
-    from bwamem_tpu.core import nfinalize
-    from bwamem_tpu.io.fastq import parse_fastx
+    from bwamem_tpu_torch.config import MemOptions, fill_scmat
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.core import nfinalize
+    from bwamem_tpu_torch.io.fastq import parse_fastx
     from bwamem_tpu_torch.ops import fm as tfm, smem as tsm, ksw as tks
     from bwamem_tpu_torch.ops.engine import TorchSeedingEngine
     t0 = time.perf_counter()
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     fm_host, bns = load_index(idx_prefix)
     eng = TorchSeedingEngine(fm_host, dev)
     d = eng.dfm
@@ -253,7 +365,9 @@ def check_kernels(label, idx_prefix, fq, rec):
         raise RuntimeError(f"{label}: superstep slots differ ({err})")
     rec["smem_superstep"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
                                       max_abs_err=err, lanes=B,
-                                      over=int(over.sum()), bucket="L128"))
+                                      over=int(over.sum()), bucket="L128",
+                                      **fm_bound(d, tsm.superstep_plain,
+                                                 args, ko)))
 
     # SA walk: the main path's KEY_CAP occurrence keys of those reads
     c0, cs, cqb, cqe, n, _ = tsm.compact_streams(*ko[:4], ko[4], ko[5],
@@ -273,9 +387,13 @@ def check_kernels(label, idx_prefix, fq, rec):
     err = max_err([(kv[0][:nk], pv[0][:nk]), (kv[1][:nk], pv[1][:nk])])
     if err or not torch.equal(kv[1], pv[1]):
         raise RuntimeError(f"{label}: SA walk differs ({err})")
+    sa_b = bound(nk * d.sa.element_size(), 0)["bound_bytes"]
+    fb = fm_bound(d, lambda *a: tfm.sa_lookup_batched(d, *a),
+                  (keys, sdr.sa_max_steps), kv)
+    fb.update(bound(fb["bound_bytes"] + sa_b, fb["bound_ops"]))
     rec["sa_walk"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
                                max_abs_err=err, keys=len(keys),
-                               live_keys=nk))
+                               live_keys=nk, **fb))
 
     # extension: one WAVE_EXT group of this genome's seeds, size-sorted
     reads = []
@@ -306,9 +424,14 @@ def check_kernels(label, idx_prefix, fq, rec):
     err = max_err(list(zip(ke, pe_)))
     if err:
         raise RuntimeError(f"{label}: extension differs ({err})")
+    cells = (band_cells(pk["llq"][grp], pk["llt"][grp], opt.w)
+             + band_cells(pk["rlq"][grp], pk["rlt"][grp], opt.w))
     rec["extend_lr"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
                                  max_abs_err=err, lanes=W, LT=LT,
-                                 distinct_seeds=len(lanes), bucket="LQ128"))
+                                 distinct_seeds=len(lanes), bucket="LQ128",
+                                 cells=cells,
+                                 **bound(nbytes(ext_args) + nbytes(ke),
+                                         OPS_PER_CELL * cells)))
     check_sw_kernels(label, eng, bns, opt, reads, cb.flat, pk, rec)
     check_long_kernels(label, eng, bns, opt, (q, qlen), reads, cb.flat, pk,
                        rec)
@@ -326,9 +449,9 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
     windows at their first seed, each at its wave width."""
     import numpy as np
     import torch
-    from bwamem_tpu.index.bntseq import get_seq
+    from bwamem_tpu_torch.index.bntseq import get_seq
     from bwamem_tpu_torch.ops import ksw as tks, ksw_align as tka
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(7)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     mat = eng._mat_dev(opt)
@@ -357,8 +480,12 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
     err = max_err(list(zip(ko, po)))
     if err:
         raise RuntimeError(f"{label}: extend2 differs ({err})")
+    cells = band_cells(ql, tl, opt.w)
     rec["extend2"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
-                               max_abs_err=err, lanes=eng.wave, LT=LT))
+                               max_abs_err=err, lanes=eng.wave, LT=LT,
+                               cells=cells,
+                               **bound(nbytes(args) + nbytes(ko),
+                                       OPS_PER_CELL * cells)))
 
     # reads and the reference start of their first seed
     chain_off, seed_off, s_rb, s_qb, _ = flat
@@ -401,8 +528,12 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
     err = max_err(list(zip(ko, po)))
     if err:
         raise RuntimeError(f"{label}: global2 differs ({err})")
+    cells = band_cells(sc[0], sc[1], sc[2])
     rec["global2"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
-                               max_abs_err=err, lanes=W, LQ=GLQ, LT=GLT))
+                               max_abs_err=err, lanes=W, LQ=GLQ, LT=GLT,
+                               cells=cells,
+                               **bound(nbytes(args) + nbytes(ko),
+                                       OPS_PER_CELL * cells)))
 
     # align2: the read against a ~500 bp window around it, WAVE lanes,
     # u8 and i16 passes, a third of the lanes with an endsc stop
@@ -429,6 +560,10 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
             raise RuntimeError(f"{label}: align2 size {size} differs ({err})")
         tag = "u8" if size == 1 else "i16"
         res.update({f"ms_{tag}": k_ms, f"plain_ms_{tag}": p_ms})
+        if size == 1:
+            cells = int((sc[0].astype(np.int64) * sc[1]).sum())
+            res.update(cells=cells, **bound(nbytes(args) + nbytes(ko),
+                                            OPS_PER_CELL * cells))
     # the kernels line reports the u8 pass: bwa's mate rescue of reads
     # shorter than 250 bp takes it (KSW_XBYTE when l_ms * a < 250)
     res.update(ms=res["ms_u8"], plain_ms=res["plain_ms_u8"])
@@ -440,9 +575,9 @@ def cut_reads(bns, n, L, seed):
     strands): the first four exact full-length copies, the rest with 1%
     substitutions and, in a third of them, an N."""
     import numpy as np
-    from bwamem_tpu.core.pipeline import encode_read
-    from bwamem_tpu.index.bntseq import get_seq
-    from bwamem_tpu.io.fastq import Read
+    from bwamem_tpu_torch.core.pipeline import encode_read
+    from bwamem_tpu_torch.index.bntseq import get_seq
+    from bwamem_tpu_torch.io.fastq import Read
     rng = np.random.default_rng(seed)
     acgtn = np.frombuffer(b"ACGTN", np.uint8)
     reads = []
@@ -491,9 +626,9 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
     independent)."""
     import numpy as np
     import torch
-    from bwamem_tpu.core import nfinalize
+    from bwamem_tpu_torch.core import nfinalize
     from bwamem_tpu_torch.ops import extbuild as teb, ksw as tks, smem as tsm
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     d, sdr = eng.dfm, eng.seeder
     B, M = sdr.lanes, sdr.M
@@ -526,7 +661,9 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
         rec["smem1_step"].append(dict(
             index=label, bucket=f"L{L}", ms=k_ms, plain_ms=p_ms,
             max_abs_err=err, lanes=B, need2=int(ko[8].sum()),
-            over=int(ko[7].sum())))
+            over=int(ko[7].sum()),
+            **(fm_bound(d, tsm.smem_iter_step_plain, args, ko)
+               if L == 128 else {})))
 
     # the superstep at the long buckets, with their stream caps
     for L in (256, 512):
@@ -614,10 +751,106 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
         if err or host_err:
             raise RuntimeError(f"{label}: build_rows LQ={LQ} LT={LT} differs "
                                f"(plain {err}, host rows {host_err})")
+        out_b = nbytes(ko)
         rec["build_rows"].append(dict(
             index=label, bucket=f"LQ{LQ}", ms=k_ms, plain_ms=p_ms,
             max_abs_err=err, host_rows_err=host_err, lanes=W, LT=LT,
-            distinct_seeds=len(lanes)))
+            distinct_seeds=len(lanes),
+            **bound(nbytes(args[:1] + args[3:]) + out_b // 2 + out_b, 0)))
+
+
+MAIN_SHAPES = {   # the record of each occ-row kernel in the kernels line
+    "gather_rows": lambda ln: (ln["table_name"].startswith("index:")
+                               and ln["ids"] == 2 * 8192 * 16),
+    "occ4": lambda ln: (ln["table_name"].startswith("index:")
+                        and ln["ids"] == 2 * 8192 * 16),
+    "row_chain": lambda ln: (ln["table_bytes"] == 4 << 30
+                             and ln["width"] == 16 and ln["mode"] == "dep"
+                             and ln["K"] == 1 and ln["lanes"] == 8192),
+    "affine_loop": lambda ln: True}
+CHAIN_STEP_OPS = 8   # a chain step's next id: xor, multiply, adds, modulo
+
+
+class SweepCheck:
+    """microbench.run's check: every kernel call of the sweep against its
+    plain version on the same CUDA inputs, at full width and tolerance
+    zero, with its bound; one record per call in rec.  Bytes are the
+    inputs and outputs once and each distinct table row once (the rows
+    the plain version fetched); operations are 96 per occ4 key, and for
+    a chain a row's words summed plus CHAIN_STEP_OPS a step."""
+
+    def __init__(self, rec):
+        self.rec = rec
+
+    def __call__(self, kernel, line, out, args, library=None):
+        import torch
+        from bwamem_tpu_torch.ops import occ as toc
+        plain = {"gather_rows": toc.gather_rows_plain,
+                 "occ4": toc.occ4_plain, "row_chain": toc.row_chain_plain,
+                 "affine_loop": toc.affine_loop_plain}[kernel]
+        p_ms, po = cuda_ms(lambda: plain(*args), 1, False)
+        if kernel == "affine_loop":
+            err = float((out - po).abs().max())
+            err = err or line["max_abs_diff"]   # against one-step launches
+        else:
+            err = max_err([(out, po)])
+        if err or line.get("result", "OK") != "OK" \
+                or line.get("equal_to_index_select") is False:
+            raise RuntimeError(f"{kernel} differs from its plain version "
+                               f"({err}): {line}")
+        table = args[0]
+        if kernel == "gather_rows":
+            ids = args[1]
+            ok = (ids >= 0) & (ids < table.shape[0])
+            rows = int(torch.unique(ids[ok]).numel())
+            bd = bound(nbytes((ids, out))
+                       + rows * table.shape[1] * table.element_size(), 0)
+        elif kernel == "affine_loop":
+            bd = bound(2 * nbytes(args[:1]), 2 * table.numel() * args[1])
+        else:
+            with rows_fetched(table.shape[0], table.device) as log:
+                plain(*args)
+            row_b = table.shape[1] * table.element_size()
+            if kernel == "occ4":
+                bd = bound(nbytes((args[2], out)) + row_b * log.distinct(),
+                           OPS_PER_OCC_ROW * args[2].numel())
+            else:
+                idx0, T = args[1], args[2]
+                bd = bound(nbytes((idx0, out)) + row_b * log.distinct(),
+                           table.shape[1] * log.fetched
+                           + CHAIN_STEP_OPS * idx0.numel() * T)
+        r = dict(index=line.get("table_name", "random_64x128"),
+                 ms=line.get("ms", line.get("ms_in_kernel")),
+                 device_ms=line.get("device_ms",
+                                    line.get("device_ms_in_kernel")),
+                 plain_ms=p_ms, max_abs_err=err, **bd,
+                 library_ms=(library or {}).get("ms"),
+                 library_device_ms=(library or {}).get("device_ms"))
+        if not MAIN_SHAPES[kernel](line):
+            r["bucket"] = "_".join(
+                str(line[k]) for k in ("sub", "mode", "K", "lanes", "ids")
+                if k in line)
+        self.rec[kernel].append(r)
+
+
+def microbench_sweep(idx_prefix, rec):
+    """The slice's main path: ``python -m bwamem_tpu_torch.microbench
+    all`` in this process (gather, chain, loop and probe at their
+    defaults, with the index's occ table), each kernel call held against
+    its plain version by SweepCheck, each line printed and kept in
+    .smoke_data/microbench.jsonl."""
+    from bwamem_tpu_torch import microbench
+    t0 = time.perf_counter()
+    args = microbench.parser().parse_args(["all", "--index", idx_prefix])
+    lines = microbench.run(args, emit=lambda ln: say("microbench", **ln),
+                           check=SweepCheck(rec))
+    with open(os.path.join(HERE, ".smoke_data", "microbench.jsonl"),
+              "w") as f:
+        f.writelines(json.dumps(ln) + "\n" for ln in lines)
+    say("microbench_done", lines=len(lines),
+        checked={k: len(rec[k]) for k in MAIN_SHAPES},
+        results={k: rec[k] for k in MAIN_SHAPES},
+        seconds=time.perf_counter() - t0)
 
 
 def main(argv):
@@ -758,6 +991,14 @@ def main(argv):
         (_kernels.EXTEND2, _kernels.GLOBAL2, _kernels.ALIGN2),
         "the wave path"))
 
+    # the microbench entry point, each kernel call held against its
+    # plain version, counted like the paths above
+    _kernels.reset_counts()
+    microbench_sweep(os.path.join(DATA if quick else BIG, "genome.fa"), rec)
+    launches.update(read_counts(
+        (_kernels.GATHER, _kernels.OCC4, _kernels.CHAIN, _kernels.LOOP),
+        "the microbench sweep"))
+
     kernels = []
     for k in _kernels.KERNELS:
         # ms and plain_ms: the L=128/LQ=128 shape (or the kernel's only
@@ -769,6 +1010,9 @@ def main(argv):
             replaces=k.replaces, launches=launches[k.name],
             max_abs_err=max(r["max_abs_err"] for r in rec[k.name]),
             ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main.get("library_ms"), index=main["index"],
+            device_ms=main.get("device_ms"),
             bucket_launches={b: n for b, n in buckets.items()
                              if b.startswith(k.name + "_")},
             bucket_ms={r["bucket"]: [r["ms"], r["plain_ms"]]

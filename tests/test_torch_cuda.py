@@ -4,7 +4,8 @@ no CUDA device and run on the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-This file imports no JAX, so it runs where JAX is not installed."""
+This file imports nothing of JAX or of the JAX package, so it runs where
+JAX is not installed."""
 
 import os
 
@@ -24,7 +25,7 @@ def cuda():
 
 @pytest.fixture(scope="module")
 def engine(cuda, data_dir):
-    from bwamem_tpu.index import load_index
+    from bwamem_tpu_torch.index import load_index
     from bwamem_tpu_torch.ops.engine import TorchSeedingEngine
     fm, bns = load_index(os.path.join(data_dir, "genome.fa"))
     return TorchSeedingEngine(fm, cuda), bns
@@ -45,12 +46,12 @@ def dfm(request, engine, monkeypatch):
 
 
 def _reads(data_dir, n):
-    from bwamem_tpu.io.fastq import parse_fastx
+    from bwamem_tpu_torch.io.fastq import parse_fastx
     return list(parse_fastx(os.path.join(data_dir, "reads_se.fq")))[:n]
 
 
 def test_superstep_kernel_matches_plain(engine, dfm, data_dir):
-    from bwamem_tpu.core.pipeline import encode_read
+    from bwamem_tpu_torch.core.pipeline import encode_read
     from bwamem_tpu_torch.ops import _kernels
     from bwamem_tpu_torch.ops.smem import superstep_cuda, superstep_plain
     eng, _ = engine
@@ -110,8 +111,8 @@ def test_empty_batch_launches_nothing(engine):
 
 
 def test_extension_kernel_matches_plain(engine, data_dir):
-    from bwamem_tpu.config import MemOptions, fill_scmat
-    from bwamem_tpu.core import nfinalize
+    from bwamem_tpu_torch.config import MemOptions, fill_scmat
+    from bwamem_tpu_torch.core import nfinalize
     from bwamem_tpu_torch.ops.ksw import extend_lr_cuda, extend_lr_plain
     eng, bns = engine
     opt = MemOptions()
@@ -232,7 +233,7 @@ def test_align2_kernel_matches_plain(engine, size):
 
 
 def _opt():
-    from bwamem_tpu.config import MemOptions, fill_scmat
+    from bwamem_tpu_torch.config import MemOptions, fill_scmat
     opt = MemOptions()
     opt.mat = fill_scmat(opt.a, opt.b)
     return opt
@@ -265,7 +266,7 @@ def _long_queries(bns, n, L, seed):
     """n reads of L/2..L bp cut from the bundled genome (both strands),
     packed; the first four exact full-length copies (qe == L), the rest
     with substitutions and, in a third of them, an N."""
-    from bwamem_tpu.index.bntseq import get_seq
+    from bwamem_tpu_torch.index.bntseq import get_seq
     rng = np.random.default_rng(seed)
     q = np.full((n, L), 4, np.int8)
     qlen = np.zeros(n, np.int32)
@@ -385,8 +386,8 @@ def test_extension_kernel_long_buckets(engine, LQ, LT):
 def test_build_rows_kernel_matches_plain(engine, data_dir, LQ, LT):
     """bm_build_rows against its plain version and the native packer's
     rows, for the seeds of 200 bundled reads."""
-    from bwamem_tpu.core import nfinalize
-    from bwamem_tpu.core.pipeline import encode_read
+    from bwamem_tpu_torch.core import nfinalize
+    from bwamem_tpu_torch.core.pipeline import encode_read
     from bwamem_tpu_torch.ops import _kernels
     from bwamem_tpu_torch.ops.extbuild import (build_rows_cuda,
                                                build_rows_plain, pac_tensor,
@@ -445,3 +446,70 @@ def test_mem_cuda_routes_match_golden(cuda, data_dir, monkeypatch, route,
     assert out == want
     k = _kernels.SMEM1 if key == "BWAMEM_TPU_SUPERSTEP" else _kernels.BUILD
     assert k.launches > 0
+
+
+def _table(cuda, n_rows, W, seed):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    return torch.randint(-(1 << 31), 1 << 31, (n_rows, W), dtype=torch.int32,
+                         generator=g, device=cuda)
+
+
+@pytest.mark.parametrize("W,transpose", [(16, False), (128, False),
+                                         (128, True), (12, False)])
+def test_gather_rows_kernel_matches_plain(cuda, W, transpose):
+    """The row gather at the occ row (16), the TPU's wide row (128, also
+    transposed, probe a+b) and a width the vector path does not take;
+    ids outside the table give zero rows."""
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.occ import gather_rows_cuda, gather_rows_plain
+    table = _table(cuda, 4096, W, W)
+    ids = torch.randint(-2, 4098, (3001,), device=cuda)
+    n0 = _kernels.GATHER.launches
+    got = gather_rows_cuda(table, ids, transpose)
+    torch.cuda.synchronize()
+    assert _kernels.GATHER.launches == n0 + 1
+    assert torch.equal(got, gather_rows_plain(table, ids, transpose))
+    if not transpose:
+        ids2 = ids[:3000].view(2, 30, 50)
+        assert torch.equal(gather_rows_cuda(table, ids2),
+                           gather_rows_plain(table, ids2))
+
+
+def test_occ4_kernel_matches_plain(dfm):
+    from bwamem_tpu_torch.ops import fm as tfm
+    from bwamem_tpu_torch.ops.occ import occ4_cuda
+    n = dfm.seq_len_int
+    special = torch.tensor([-1, 0, dfm.primary_int - 1, dfm.primary_int,
+                            n - 1], device=dfm.device)
+    k = torch.cat([special, torch.randint(0, n, (20000,),
+                                          device=dfm.device)])
+    got = occ4_cuda(dfm.blocks, dfm.primary_int, k)
+    assert torch.equal(got, tfm.occ4(dfm.blocks, dfm.primary_int, k))
+    # a key past the table reads nothing and gives zeros
+    past = torch.tensor([128 * dfm.n_blocks + 1, 1 << 40], device=dfm.device)
+    assert not occ4_cuda(dfm.blocks, dfm.primary_int, past).any()
+
+
+@pytest.mark.parametrize("W", [16, 128])
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", ["dep", "nodep", "null", "full", "xpose",
+                                  "dma"])
+def test_row_chain_kernel_matches_plain(cuda, mode, K, W):
+    from bwamem_tpu_torch.ops.occ import row_chain_cuda, row_chain_plain
+    table = _table(cuda, 1000 if W == 16 else 1 << 10, W, K)
+    idx0 = torch.randint(0, table.shape[0], (K, 777), device=cuda,
+                         dtype=torch.int32)
+    got = row_chain_cuda(table, idx0, 9, mode)
+    assert torch.equal(got, row_chain_plain(table, idx0, 9, mode))
+
+
+def test_affine_loop_kernel_matches_plain(cuda):
+    from bwamem_tpu_torch.ops.occ import affine_loop_cuda, affine_loop_plain
+    x = torch.rand((64, 128), device=cuda)
+    got = affine_loop_cuda(x, 256)
+    assert torch.equal(got, affine_loop_plain(x, 256))
+    c = x
+    for _ in range(256):
+        c = affine_loop_cuda(c, 1)
+    assert torch.equal(c, got)
