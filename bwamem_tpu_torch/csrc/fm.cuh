@@ -71,20 +71,115 @@ BM_HD void fm_occ4(const FmView& f, int64_t k, int64_t cnt[4]) {
   cnt[3] = (static_cast<int64_t>(row[7]) << 32 | row[6]) + c3;
 }
 
-// bwt_extend for one base c: the bi-interval of (x0, x1, s) extended by
-// c, backward (is_back) or forward.
-BM_HD Iv3 fm_extend1(const FmView& f, int64_t x0, int64_t x1, int64_t s,
-                     bool is_back, int c) {
+// Four words of an occ row, loaded as one 16-byte access (the rows are
+// 64-byte aligned).
+struct W4 {
+  uint32_t w[4];
+};
+
+BM_HD W4 fm_load4(const uint32_t* p) {
+#ifdef __CUDA_ARCH__
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  return W4{{v.x, v.y, v.z, v.w}};
+#else
+  return W4{{p[0], p[1], p[2], p[3]}};
+#endif
+}
+
+// The share of chunk ch (words 4ch..4ch+3) of the occ row that bwt_occ4
+// reads for k in cnt[c] (added to *at) and in the sum of cnt[d] over d > c
+// (added to *above).  Chunks 0-1 hold the checkpoints, chunks 2-3 the
+// BWT words; the four chunks together give fm_occ4's counts, and k < 0
+// gives nothing.
+BM_HD void fm_occ_chunk(const FmView& f, int64_t k, int ch, int c,
+                        int64_t* at, int64_t* above) {
+  if (k < 0) return;
+  const int64_t kk = k - (k >= f.primary ? 1 : 0);
+  const W4 v = fm_load4(f.blocks + (kk >> 7) * 16 + ch * 4);
+  int64_t p0, p1, p2, p3;
+  if (ch < 2) {
+    const int64_t a = static_cast<int64_t>(v.w[1]) << 32 | v.w[0];
+    const int64_t b = static_cast<int64_t>(v.w[3]) << 32 | v.w[2];
+    p0 = ch == 0 ? a : 0;
+    p1 = ch == 0 ? b : 0;
+    p2 = ch == 1 ? a : 0;
+    p3 = ch == 1 ? b : 0;
+  } else {
+    const int off = static_cast<int>(kk & 127);
+    const int wi = off >> 4;
+    const int r = (~off) & 15;
+    int c1 = 0, c2 = 0, c3 = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = (ch - 2) * 4 + q;
+      const uint32_t m = j < wi ? 0xFFFFFFFFu
+                                : (j == wi ? ~((1u << (r * 2)) - 1u) : 0u);
+      const uint32_t w = v.w[q] & m;
+      const uint32_t hb = (w >> 1) & 0x55555555u;
+      const uint32_t lb = w & 0x55555555u;
+      c3 += bm_popc(hb & lb);
+      c2 += bm_popc(hb & ~lb);
+      c1 += bm_popc(lb & ~hb);
+    }
+    p0 = (ch == 2 ? off + 1 : 0) - c1 - c2 - c3;
+    p1 = c1;
+    p2 = c2;
+    p3 = c3;
+  }
+  *at += c == 0 ? p0 : (c == 1 ? p1 : (c == 2 ? p2 : p3));
+  *above += (c < 1 ? p1 : 0) + (c < 2 ? p2 : 0) + (c < 3 ? p3 : 0);
+}
+
+// The bi-interval from bwt_occ4's counts at the two rows: tk_c = cnt(k)[c],
+// tl_c = cnt(l)[c] and above = the sum over d > c of cnt(l)[d] - cnt(k)[d].
+BM_HD Iv3 fm_interval(const FmView& f, int64_t x0, int64_t x1, int64_t s,
+                      bool is_back, int c, int64_t tk_c, int64_t tl_c,
+                      int64_t above) {
   const int64_t fwd = is_back ? x0 : x1;
-  int64_t tk[4], tl[4];
-  fm_occ4(f, fwd - 1, tk);
-  fm_occ4(f, fwd - 1 + s, tl);
   const int64_t bump = (fwd <= f.primary && fwd + s - 1 >= f.primary);
-  int64_t same = (is_back ? x1 : x0) + bump;
-  for (int d = 3; d > c; --d) same += tl[d] - tk[d];
-  const int64_t side = f.L2[c] + 1 + tk[c];
-  const int64_t sz = tl[c] - tk[c];
+  const int64_t same = (is_back ? x1 : x0) + bump + above;
+  const int64_t side = f.L2[c] + 1 + tk_c;
+  const int64_t sz = tl_c - tk_c;
   return is_back ? Iv3{side, same, sz} : Iv3{same, side, sz};
+}
+
+// bwt_extend for one base c: the bi-interval of (x0, x1, s) extended by
+// c, backward (is_back) or forward, on one thread by eight independent
+// 16-byte loads.
+BM_HD Iv3 fm_extend1_v(const FmView& f, int64_t x0, int64_t x1, int64_t s,
+                       bool is_back, int c) {
+  const int64_t fwd = is_back ? x0 : x1;
+  int64_t tk = 0, tl = 0, ak = 0, al = 0;
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    fm_occ_chunk(f, fwd - 1, ch, c, &tk, &ak);
+    fm_occ_chunk(f, fwd - 1 + s, ch, c, &tl, &al);
+  }
+  return fm_interval(f, x0, x1, s, is_back, c, tk, tl, al - ak);
+}
+
+// fm_extend1_v by the lanes of a group of 4 or 8 (team.cuh): the two rows'
+// 64 bytes as one 16-byte load a lane and row (G = 4: lane t reads chunk
+// t of both rows; G = 8: lane t chunk t & 3 of row t >> 2), the counts
+// summed across the group.  Every lane gets the interval.
+template <class TM>
+BM_HD Iv3 fm_extend1_team(const TM& tm, const FmView& f, int64_t x0,
+                          int64_t x1, int64_t s, bool is_back, int c) {
+  constexpr int NL = TM::NL;
+  static_assert(TM::kG == 4 || TM::kG == 8, "a group of 4 or 8 lanes");
+  const int64_t fwd = is_back ? x0 : x1;
+  int64_t tk[NL], tl[NL], ab[NL];
+  for (int l = 0; l < NL; ++l) {
+    const int t = tm.lane(l);
+    int64_t ak = 0, al = 0;
+    tk[l] = tl[l] = 0;
+    if (TM::kG == 4 || t < 4) fm_occ_chunk(f, fwd - 1, t & 3, c, &tk[l], &ak);
+    if (TM::kG == 4 || t >= 4)
+      fm_occ_chunk(f, fwd - 1 + s, t & 3, c, &tl[l], &al);
+    ab[l] = al - ak;
+  }
+  return fm_interval(f, x0, x1, s, is_back, c, tm.sum_all(tk),
+                     tm.sum_all(tl), tm.sum_all(ab));
 }
 
 // bwt_B0: the BWT symbol at $-removed position x.

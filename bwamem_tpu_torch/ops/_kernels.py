@@ -29,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("smem.cu", "sa.cu", "extend.cu", "global.cu", "align.cu",
            "extbuild.cu", "occ.cu", "microbench.cu")
-HEADERS = ("fm.cuh",)
+HEADERS = ("fm.cuh", "team.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

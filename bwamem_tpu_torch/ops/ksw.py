@@ -6,11 +6,11 @@ seed left and right with the x2 band-doubling retries
 (software/bwamem.c:1120-1176); ``ksw_extend2_batched`` is one
 ksw_extend2 per lane; ``ksw_global2_batched`` is ksw_global2
 (software/ksw.c:501-585) with the traceback on the device.  On CUDA
-tensors each launches its kernel (csrc/extend.cu, csrc/global.cu), one
-thread per lane; on CPU tensors each runs its plain version below, the
-JAX package's lock-step DP (each row vectorized over the query and over
-lanes, the F dependency resolved by a prefix max) with a Python loop
-over rows.
+tensors each launches its kernel (csrc/extend.cu: one warp per lane;
+csrc/global.cu: one thread per lane); on CPU tensors each runs its plain
+version below, the JAX package's lock-step DP (each row vectorized over
+the query and over lanes, the F dependency resolved by a prefix max) with
+a Python loop over rows.
 """
 
 import numpy as np

@@ -6,12 +6,12 @@ SMEM iterator (rounds of bwt_smem1 pass 1, the re-seeding pass 2, the
 ordered merge and the stream append, software/bwamem.c:110-241);
 ``smem_iter_step`` runs one round of it (pass 1, the re-seeding test,
 pass 2) for the round-per-launch route, and leaves the merge to the
-host.  On a CUDA tensor each launches its kernel (csrc/smem.cu), on a
-CPU tensor each runs its plain version below, a lock-step translation
-of the JAX package's XLA path in which Python ``while`` loops over all
-lanes take the place of ``lax.while_loop``.  Queries of up to 512 bp
-(the L=128, 256 and 512 buckets) go through the same code; outputs are
-int32/int64 at every L.  The compaction and the key expansion are plain
+host.  On a CUDA tensor each launches its kernel (csrc/smem.cu, a group
+of eight threads per read), on a CPU tensor each runs its plain version
+below, a lock-step translation of the JAX package's XLA path in which
+Python ``while`` loops over all lanes take the place of
+``lax.while_loop``.  Queries of up to 512 bp (the L=128, 256 and 512
+buckets) go through the same code; outputs are int32/int64 at every L.  The compaction and the key expansion are plain
 tensor code on either device; the SA walk is ``fm.sa_lookup`` (the
 SA-walk kernel on CUDA).
 """
@@ -312,6 +312,9 @@ def _check_queries(dfm: DeviceFmIndex, q_pk, qlen, L: int, M: int) -> None:
         raise ValueError(f"q_pk must be int8 ({B}, {L // 2})")
     if dfm.device != q_pk.device:
         raise ValueError(f"queries on {q_pk.device}, index on {dfm.device}")
+    if dfm.blocks.data_ptr() % 16:
+        raise ValueError("the occ table must be 16-byte aligned (the "
+                         "kernels load a row in 16-byte pieces)")
     if B and int(qlen.max()) > L:
         raise ValueError(f"a query is longer than L={L}")
 

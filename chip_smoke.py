@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py           # all phases, one GPU
     python3 chip_smoke.py --quick   # phases 1-3 and 5 on the bundled genome
+    python3 chip_smoke.py --kernels [--root DIR]   # phases 1-2 only
+                                    # (--root: the package of another tree,
+                                    # e.g. a git archive of the parent)
 
 Phases, each printing one line with its own numbers and seconds:
 
@@ -27,7 +30,10 @@ Phases, each printing one line with its own numbers and seconds:
    (PLAIN_LANES), the plain versions being slow at full width.  Integer
    outputs: the tolerance is zero;
    Every record carries its bound: bytes over 3.35 TB/s or 32-bit lane
-   operations over 33.5 T/s, whichever is longer (see bound());
+   operations over 33.5 T/s, whichever is longer (see bound()), at every
+   bucket; the extensions' records also the cells the DP visits (each
+   row's narrowed band), counted by the kernel's host emulation
+   (ops/emulate.py), whose outputs must equal the kernel's;
 3. goldens: ``mem`` SE, SE -a -M and PE on tests/data through
    ``bwamem_tpu_torch.cli --device cuda``, byte-identical to the goldens
    (without @PG), then the -v 4 SE, -v 4 PE and -v 5 traces of the
@@ -89,6 +95,7 @@ import time
 import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+EMULATE = True   # count visited DP cells by the kernels' host emulation
 WIDTHS = {"BWAMEM_TPU_LANES": "8192", "BWAMEM_TPU_SA_SLICE": "32768",
           "BWAMEM_TPU_WAVE_EXT": "16384"}
 DATA = os.path.join(HERE, "tests", "data")
@@ -239,6 +246,59 @@ def band_cells(qlen, tlen, w):
     i = np.arange(int(qlen.max()))[None]
     span = np.minimum(tlen, i + w + 1) - np.maximum(0, i - w)
     return int((np.clip(span, 0, None) * (i < qlen)).sum())
+
+
+def ext_lane_args(pk, g, LQ, LT, opt, mat, dev):
+    """extend_lr's arguments for the packed seeds g of pk, on dev."""
+    import numpy as np
+    import torch
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    rows = lambda k, w: T(pk[k][g][:, :w // 2])  # noqa: E731
+    return (rows("lq_pk", LQ), rows("lt_pk", LT), T(pk["llq"][g]),
+            T(pk["llt"][g]), rows("rq_pk", LQ), rows("rt_pk", LT),
+            T(pk["rlq"][g]), T(pk["rlt"][g]), mat.to(dev), opt.o_del,
+            opt.e_del, opt.o_ins, opt.e_ins, opt.w, opt.pen_clip5,
+            opt.pen_clip3, opt.zdrop, T(pk["scs"][g]), T(pk["sqb"][g]),
+            T(pk["srb"][g]), T(pk["rmax0"][g]), T(pk["lqv"][g]),
+            T(pk["slv"][g]), LQ, LT)
+
+
+def ext_bound(pk, grp, args, outs, opt, LQ, LT):
+    """extend_lr's bound over the lanes grp of pk: its tensors' bytes, and
+    OPS_PER_CELL a cell of the bands (both sides at w, again at 2w where
+    a side retried, aw0/aw1 == 2w in the kernel's outputs); beside it, the
+    tighter count of the cells the DP visits (each row's narrowed [beg,
+    end) before its breaks), which the host emulation of the kernel
+    (ops/emulate.py) counts over the distinct lanes, its outputs held
+    equal to the kernel's (host_emulation_err)."""
+    import numpy as np
+    import torch
+    w = opt.w
+    aw0, aw1 = (outs[i].cpu().numpy() for i in (6, 7))
+    q, t = {}, {}
+    for s in "lr":
+        q[s], t[s] = pk[f"{s}lq"][grp], pk[f"{s}lt"][grp]
+    cells = sum(band_cells(q[s], t[s], w)
+                + band_cells(q[s][aw == 2 * w], t[s][aw == 2 * w], 2 * w)
+                for s, aw in (("l", aw0), ("r", aw1)))
+    n_bytes = nbytes(args) + nbytes(outs)
+    res = dict(cells=cells, **bound(n_bytes, OPS_PER_CELL * cells))
+    if EMULATE:
+        from bwamem_tpu_torch.ops import emulate
+        u, first, inv = np.unique(grp, return_index=True, return_inverse=True)
+        emu, visited = emulate.extend_lr(
+            *ext_lane_args(pk, u, LQ, LT, opt, args[8], "cpu"),
+            threads=os.cpu_count() or 1)
+        first = torch.from_numpy(first).to(outs[0].device)
+        res.update(cells_visited=int(visited[inv].sum()),
+                   host_emulation_err=max_err(
+                       [(a[first].cpu(), b) for a, b in zip(outs, emu)]))
+        res["bound_visited_ms"] = bound(
+            n_bytes, OPS_PER_CELL * res["cells_visited"])["bound_ms"]
+        if res["host_emulation_err"]:
+            raise RuntimeError(f"extend_lr LQ={LQ}: the host emulation "
+                               f"differs from the kernel")
+    return res
 
 
 class RowLog:
@@ -411,27 +471,17 @@ def check_kernels(label, idx_prefix, fq, rec):
     LQ = eng._ext_lq
     LT = next(b for b in eng.lt_buckets
               if b >= int(pk["lt_need"][grp].max()))
-    rows = lambda k, w: T(pk[k][grp][:, :w // 2])  # noqa: E731
-    ext_args = (rows("lq_pk", LQ), rows("lt_pk", LT), T(pk["llq"][grp]),
-                T(pk["llt"][grp]), rows("rq_pk", LQ), rows("rt_pk", LT),
-                T(pk["rlq"][grp]), T(pk["rlt"][grp]), eng._mat_dev(opt),
-                opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w,
-                opt.pen_clip5, opt.pen_clip3, opt.zdrop, T(pk["scs"][grp]),
-                T(pk["sqb"][grp]), T(pk["srb"][grp]), T(pk["rmax0"][grp]),
-                T(pk["lqv"][grp]), T(pk["slv"][grp]), LQ, LT)
+    ext_args = ext_lane_args(pk, grp, LQ, LT, opt, eng._mat_dev(opt), dev)
     k_ms, ke = cuda_ms(lambda: tks.extend_lr_cuda(*ext_args), 3)
     p_ms, pe_ = cuda_ms(lambda: tks.extend_lr_plain(*ext_args), 1, False)
     err = max_err(list(zip(ke, pe_)))
     if err:
         raise RuntimeError(f"{label}: extension differs ({err})")
-    cells = (band_cells(pk["llq"][grp], pk["llt"][grp], opt.w)
-             + band_cells(pk["rlq"][grp], pk["rlt"][grp], opt.w))
     rec["extend_lr"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
                                  max_abs_err=err, lanes=W, LT=LT,
                                  distinct_seeds=len(lanes), bucket="LQ128",
-                                 cells=cells,
-                                 **bound(nbytes(ext_args) + nbytes(ke),
-                                         OPS_PER_CELL * cells)))
+                                 **ext_bound(pk, grp, ext_args, ke, opt, LQ,
+                                             LT)))
     check_sw_kernels(label, eng, bns, opt, reads, cb.flat, pk, rec)
     check_long_kernels(label, eng, bns, opt, (q, qlen), reads, cb.flat, pk,
                        rec)
@@ -481,11 +531,22 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
     if err:
         raise RuntimeError(f"{label}: extend2 differs ({err})")
     cells = band_cells(ql, tl, opt.w)
-    rec["extend2"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
-                               max_abs_err=err, lanes=eng.wave, LT=LT,
-                               cells=cells,
-                               **bound(nbytes(args) + nbytes(ko),
-                                       OPS_PER_CELL * cells)))
+    r2 = dict(index=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+              lanes=eng.wave, LT=LT, cells=cells,
+              **bound(nbytes(args) + nbytes(ko), OPS_PER_CELL * cells))
+    if EMULATE:   # the cells visited, by the kernel's host emulation
+        from bwamem_tpu_torch.ops import emulate
+        emu, visited = emulate.extend2(*args)
+        r2.update(cells_visited=int(visited.sum()),
+                  host_emulation_err=max_err(
+                      [(a.cpu(), b) for a, b in zip(ko, emu)]))
+        r2["bound_visited_ms"] = bound(
+            nbytes(args) + nbytes(ko),
+            OPS_PER_CELL * r2["cells_visited"])["bound_ms"]
+        if r2["host_emulation_err"]:
+            raise RuntimeError(f"{label}: extend2's host emulation differs "
+                               f"from the kernel")
+    rec["extend2"].append(r2)
 
     # reads and the reference start of their first seed
     chain_off, seed_off, s_rb, s_qb, _ = flat
@@ -662,20 +723,25 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
             index=label, bucket=f"L{L}", ms=k_ms, plain_ms=p_ms,
             max_abs_err=err, lanes=B, need2=int(ko[8].sum()),
             over=int(ko[7].sum()),
-            **(fm_bound(d, tsm.smem_iter_step_plain, args, ko)
-               if L == 128 else {})))
+            **fm_bound(d, tsm.smem_iter_step_plain, args, ko)))
 
-    # the superstep at the long buckets, with their stream caps
+    # the superstep at the long buckets, with their stream caps; the
+    # plain version runs on the distinct reads (the other lanes repeat
+    # them) with the table rows it fetches logged for the bound
     for L in (256, 512):
         s_L = eng._seeder_for(L)
         qp, qlen = lane_queries([r.seq_nt4 for r in cut[L]], B, L)
         tail = (L, M, s_L.out_cap)
-        k_ms, ko = cuda_ms(
-            lambda: tsm.superstep_cuda(*smem_args(qp, qlen, B), *tail), 3)
-        n = PLAIN_LANES
-        p_ms, po = cuda_ms(
-            lambda: tsm.superstep_plain(*smem_args(qp, qlen, n), *tail), 1,
-            False)
+        k_args = smem_args(qp, qlen, B) + tail
+        k_ms, ko = cuda_ms(lambda: tsm.superstep_cuda(*k_args), 3)
+        n = min(len(cut[L]), B)
+        with rows_fetched(d.n_blocks, d.device) as log:
+            p_ms, po = cuda_ms(
+                lambda: tsm.superstep_plain(*smem_args(qp, qlen, n), *tail),
+                1, False)
+        rows = log.distinct()
+        fb = bound(nbytes(k_args) + nbytes(ko) + OCC_ROW_BYTES * rows,
+                   OPS_PER_OCC_ROW * rows)
         ko = [a[:n] for a in ko]
         over = po[5]
         ok = ~over
@@ -690,7 +756,7 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
         rec["smem_superstep"].append(dict(
             index=label, bucket=f"L{L}", ms=k_ms, plain_ms=p_ms,
             max_abs_err=err, lanes=B, plain_lanes=n, over=int(over.sum()),
-            full_length_matches=full))
+            full_length_matches=full, **fb))
 
     # the fused extension at the long query buckets: seeds of the cut
     # reads at the bucket's widest target
@@ -705,20 +771,10 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
         long_pk[L] = (rl, fl, lpk)
         lanes = np.nonzero(lpk["served"] == 0)[0]
         grp = np.resize(lanes, W)
-
-        def ext_args(g):
-            rows = lambda k, w: T(lpk[k][g][:, :w // 2])  # noqa: E731
-            return (rows("lq_pk", L), rows("lt_pk", LT), T(lpk["llq"][g]),
-                    T(lpk["llt"][g]), rows("rq_pk", L), rows("rt_pk", LT),
-                    T(lpk["rlq"][g]), T(lpk["rlt"][g]), mat, opt.o_del,
-                    opt.e_del, opt.o_ins, opt.e_ins, opt.w, opt.pen_clip5,
-                    opt.pen_clip3, opt.zdrop, T(lpk["scs"][g]),
-                    T(lpk["sqb"][g]), T(lpk["srb"][g]), T(lpk["rmax0"][g]),
-                    T(lpk["lqv"][g]), T(lpk["slv"][g]), L, LT)
-        full_args = ext_args(grp)
+        full_args = ext_lane_args(lpk, grp, L, LT, opt, mat, dev)
         k_ms, ke = cuda_ms(lambda: tks.extend_lr_cuda(*full_args), 3)
         n = PLAIN_LANES
-        p_args = ext_args(grp[:n])
+        p_args = ext_lane_args(lpk, grp[:n], L, LT, opt, mat, dev)
         p_ms, pe_ = cuda_ms(lambda: tks.extend_lr_plain(*p_args), 1, False)
         err = max_err([(a[:n], b) for a, b in zip(ke, pe_)])
         if err:
@@ -728,7 +784,8 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
             max_abs_err=err, lanes=W, plain_lanes=n, LT=LT,
             distinct_seeds=len(lanes),
             longest_side=int(max(lpk["llq"][lanes].max(),
-                                 lpk["rlq"][lanes].max()))))
+                                 lpk["rlq"][lanes].max())),
+            **ext_bound(lpk, grp, full_args, ke, opt, L, LT)))
 
     # the row builder (BWAMEM_TPU_ONCHIP_EXT=1) over WAVE_EXT seeds
     pac_d = teb.pac_tensor(bns.pac).to(dev)
@@ -854,17 +911,22 @@ def microbench_sweep(idx_prefix, rec):
 
 
 def main(argv):
+    global EMULATE
     quick = "--quick" in argv
+    kernels_only = "--kernels" in argv
+    root = argv[argv.index("--root") + 1] if "--root" in argv else HERE
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, "bwamem_tpu_torch")):
+    if not os.path.isdir(os.path.join(HERE, "bwamem_tpu_torch")) or \
+            not os.path.isdir(os.path.join(root, "bwamem_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
     os.environ.update(WIDTHS)
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.abspath(root))
+    EMULATE = root == HERE   # another tree's package has no emulation
     from bwamem_tpu_torch.ops import _kernels
 
     # 1. probe
@@ -919,6 +981,11 @@ def main(argv):
     if not quick:
         check_kernels("ecoli_len_4.64Mbp", os.path.join(BIG, "genome.fa"),
                       os.path.join(BIG, "reads_se.fq"), rec)
+    if kernels_only:
+        say("kernels_only", root=os.path.abspath(root), smi=smi,
+            ms={k: {r.get("bucket", "-") + "@" + r["index"]: r["ms"]
+                    for r in v} for k, v in rec.items() if v})
+        return 0
 
     # 3-4 on the flat route: launch counts zeroed just before, read just
     # after
@@ -1017,7 +1084,11 @@ def main(argv):
                              if b.startswith(k.name + "_")},
             bucket_ms={r["bucket"]: [r["ms"], r["plain_ms"]]
                        for r in rec[k.name]
-                       if "bucket" in r and r["index"] == main["index"]}))
+                       if "bucket" in r and r["index"] == main["index"]},
+            bucket_bound_ms={r["bucket"]: r["bound_ms"]
+                             for r in rec[k.name]
+                             if "bucket" in r and "bound_ms" in r
+                             and r["index"] == main["index"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

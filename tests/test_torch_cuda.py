@@ -513,3 +513,116 @@ def test_affine_loop_kernel_matches_plain(cuda):
     for _ in range(256):
         c = affine_loop_cuda(c, 1)
     assert torch.equal(c, got)
+
+
+# ---- the warp-per-seed extension and the group-per-read SMEM kernels at
+# ---- the edges: batch sizes that fill no whole block, edge lanes
+
+def _tile(x, B):
+    """The lanes of x repeated to B."""
+    idx = np.resize(np.arange(len(x["llq"])), B)
+    return {k: v[idx] for k, v in x.items()}
+
+
+@pytest.mark.parametrize("B", [1, 33, 16385])
+@pytest.mark.parametrize("LQ,LT", [(128, 544), (256, 800), (512, 1056)])
+def test_extension_kernels_at_the_edges(engine, LQ, LT, B):
+    """bm_extend_lr and bm_extend2 (one warp per seed, one a block)
+    against their plain versions: sides of qlen 1 and LQ, targets of LT,
+    one-sided and empty seeds, h0 0, z-drop 0, bands above the clamp."""
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.ksw import (extend2_cuda, extend2_plain,
+                                          extend_lr_cuda, extend_lr_plain)
+    from tests.test_torch_kernels_host import _edge_lanes
+    eng, _ = engine
+    x = _tile(_edge_lanes(LQ, 64, LQ, LT), B)
+    opt = _opt()
+    mat = eng._mat_dev(opt)
+    T = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(eng.device)
+    for w0, zdrop in ((100, 0), (5000, 100)):
+        args = (T(x["lq_pk"]), T(x["lt_pk"]), T(x["llq"]), T(x["llt"]),
+                T(x["rq_pk"]), T(x["rt_pk"]), T(x["rlq"]), T(x["rlt"]), mat,
+                opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, w0,
+                opt.pen_clip5, opt.pen_clip3, zdrop, T(x["scs"]),
+                T(x["sqb"]), T(x["srb"]), T(x["rmax0"]), T(x["lqv"]),
+                T(x["slv"]), LQ, LT)
+        n0 = _kernels.EXTEND.launches
+        got = extend_lr_cuda(*args)
+        torch.cuda.synchronize()
+        assert _kernels.EXTEND.launches == n0 + 1
+        for a, b in zip(got, extend_lr_plain(*args)):
+            assert torch.equal(a, b)
+    rng = np.random.default_rng(B)
+    args2 = (T(x["lq_pk"]), T(x["lt_pk"]), T(x["llq"]), T(x["llt"]), mat,
+             opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+             T(rng.choice([100, 3, 10 ** 5], B).astype(np.int32)),
+             T(rng.choice([0, 5], B).astype(np.int32)), 0,
+             T(np.where(np.arange(B) % 3 == 0, 0,
+                        rng.integers(1, 120, B)).astype(np.int32)), LQ, LT)
+    for a, b in zip(extend2_cuda(*args2), extend2_plain(*args2)):
+        assert torch.equal(a, b)
+
+
+def _edge_reads(bns, L, B):
+    """B packed reads cut from the bundled genome: full-length (qlen ==
+    L) copies, an all-N read, reads with substitutions and Ns."""
+    qp, qlen = _long_queries(bns, 64, L, L + 1)
+    qp[5] = 4 | (4 << 4)                      # all N
+    idx = np.resize(np.arange(64), B)
+    return qp[idx], qlen[idx]
+
+
+@pytest.mark.parametrize("L,B", [(128, 1), (128, 33), (128, 8193),
+                                 (512, 33)])
+def test_superstep_kernel_at_the_edges(engine, L, B):
+    """bm_smem_superstep (eight threads per read, four a block) against
+    its plain version, with the M-entry buffers and the OUT_CAP stream
+    overflowing."""
+    from bwamem_tpu_torch.ops.smem import superstep_cuda, superstep_plain
+    eng, bns = engine
+    qp, qlen = _edge_reads(bns, L, B)
+    T = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(eng.device)
+    for M, oc in ((16, 64), (2, 64), (16, 4)):
+        args = (eng.dfm, T(qp), T(qlen),
+                torch.ones(B, dtype=torch.int64, device=eng.device),
+                torch.ones(B, dtype=torch.bool, device=eng.device),
+                T(np.minimum(29, qlen).astype(np.int32)),
+                torch.full((B,), 10, dtype=torch.int32, device=eng.device),
+                L, M, oc)
+        k, p = superstep_cuda(*args), superstep_plain(*args)
+        assert torch.equal(k[5], p[5])
+        ok = ~p[5]
+        assert torch.equal(k[4][ok], p[4][ok])
+        slot = (torch.arange(oc, device=eng.device) < p[4].unsqueeze(1)) \
+            & ok.unsqueeze(1)
+        for a, b in zip(k[:4], p[:4]):
+            assert torch.equal(a[slot], b[slot])
+        if B > 1 and (M == 2 or oc == 4):
+            assert bool(k[5].any())
+
+
+@pytest.mark.parametrize("B", [1, 33, 8193])
+def test_iter_step_kernel_at_the_edges(engine, B):
+    """bm_smem_iter_step (the same group design) against its plain
+    version on all 17 outputs, M = 2 overflowing."""
+    from bwamem_tpu_torch.ops.smem import (smem_iter_step_cuda,
+                                           smem_iter_step_plain)
+    eng, bns = engine
+    L = 256
+    qp, qlen = _edge_reads(bns, L, B)
+    rng = np.random.default_rng(B)
+    x = (rng.random(B) * qlen).astype(np.int32)
+    T = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(eng.device)
+    for M in (16, 2):
+        args = (eng.dfm, T(qp), T(qlen), T(x),
+                torch.ones(B, dtype=torch.int64, device=eng.device),
+                torch.ones(B, dtype=torch.bool, device=eng.device),
+                T(np.minimum(29, qlen).astype(np.int32)),
+                torch.full((B,), 10, dtype=torch.int32, device=eng.device),
+                L, M, min(12, M))
+        k, p = smem_iter_step_cuda(*args), smem_iter_step_plain(*args)
+        for i, (a, b) in enumerate(zip(k, p)):
+            assert torch.equal(a.long(), b.long()), i
