@@ -104,7 +104,7 @@ _SIGNATURES = {
     "bm_extend_lr": [_I, _I, _I] + [_VP] * 9 + [_I] * 8 + [_VP] * 14,
     "bm_extend2": [_I, _I, _I] + [_VP] * 5 + [_I] * 4 + [_VP] * 2 + [_I]
                   + [_VP] * 8,
-    "bm_global2": [_I, _I, _I] + [_VP] * 6 + [_I] * 4 + [_VP] * 7,
+    "bm_global2": [_I, _I, _I] + [_VP] * 6 + [_I] * 4 + [_VP] * 6,
     "bm_align2": [_I, _I, _I, _I] + [_VP] * 6 + [_I] * 5 + [_VP] * 7,
     "bm_smem_iter_step": [_VP, _I64, _I64, _VP, _VP, _I] + [_VP] * 6
                          + [_I, _I, _I, _VP, _VP, _VP, _VP],

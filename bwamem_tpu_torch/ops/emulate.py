@@ -1,12 +1,14 @@
-"""The host emulation of the extension and SMEM kernels.
+"""The host emulation of the extension, SMEM, global-alignment and
+local-SW kernels.
 
-``csrc/extend.cu`` and ``csrc/smem.cu`` are written against a team of
-lanes (``csrc/team.cuh``); built by g++ instead of nvcc, each runs a
-thread group's lanes as arrays in one CPU thread, with the shuffles and
-ballots as loops.  This module builds them (one shared library per
-source under ``bwamem_tpu_torch/_build/host``, keyed by a hash of the
-sources) and calls their ``*_host`` entries on CPU arrays: the kernels'
-own algorithm (the warp per seed, the group per read) on the CPU.  The
+``csrc/extend.cu``, ``csrc/smem.cu``, ``csrc/global.cu`` and
+``csrc/align.cu`` are written against a team of lanes
+(``csrc/team.cuh``); built by g++ instead of nvcc, each runs a thread
+group's lanes as arrays in one CPU thread, with the shuffles and ballots
+as loops.  This module builds them (one shared library per source under
+``bwamem_tpu_torch/_build/host``, keyed by a hash of the sources) and
+calls their ``*_host`` entries on CPU arrays: the kernels' own algorithm
+(the warp per seed or alignment, the group per read) on the CPU.  The
 tests hold it against the plain versions; ``chip_smoke.py`` takes from
 it the DP cells each seed's extension visits.  It is not a path of the
 aligner.
@@ -44,6 +46,11 @@ _SIGNATURES = {
         "bm_smem_iter_step_host": [_VP, _I64, _I64, _VP, _VP, _I]
                                   + [_VP] * 6 + [_I, _I, _I, _VP, _VP,
                                                  _VP]},
+    "global.cu": {
+        "bm_global2_host": [_I, _I, _I] + [_VP] * 6 + [_I] * 4 + [_VP] * 5},
+    "align.cu": {
+        "bm_align2_host": [_I, _I, _I, _I] + [_VP] * 6 + [_I] * 5
+                          + [_VP] * 6},
 }
 _libs = {}
 _lock = threading.Lock()
@@ -165,6 +172,45 @@ def extend2(query, target, qlen, tlen, mat, o_del, e_del, o_ins, e_ins, w,
         *_ptrs(outs), cells.ctypes.data)
     _check(rc, "extend2")
     return tuple(torch.from_numpy(o) for o in outs), cells
+
+
+def global2(query, target, qlen, tlen, mat, o_del, e_del, o_ins, e_ins, w,
+            LQ: int, LT: int):
+    """bm_global2's warp per lane on the host; the arguments and outputs
+    of ops/ksw.py global_plain."""
+    i8, i32 = np.int8, np.int32
+    B = len(qlen)
+    ins = [_np(a, dt) for a, dt in (
+        (query, i8), (target, i8), (qlen, i32), (tlen, i32), (w, i32),
+        (_np(mat, i8).reshape(-1), i8))]
+    score, n_ops, rem_i, rem_k = (np.zeros(B, i32) for _ in range(4))
+    ops = np.zeros((B, LT + LQ), np.uint8)
+    rc = _library("global.cu").bm_global2_host(
+        LQ, LT, B, *_ptrs(ins), o_del, e_del, o_ins, e_ins,
+        *_ptrs((score, ops, n_ops, rem_i, rem_k)))
+    _check(rc, "global2")
+    return tuple(torch.from_numpy(a) for a in (score, ops, n_ops, rem_i,
+                                               rem_k))
+
+
+def align2(query, target, qlen, tlen, mat, o_del, e_del, o_ins, e_ins,
+           endsc, shift: int, size: int, LQV: int, LT: int):
+    """bm_align2's warp per lane on the host; the arguments and outputs of
+    ops/ksw_align.py align_plain."""
+    i8, i32 = np.int8, np.int32
+    B = len(qlen)
+    ins = [_np(a, dt) for a, dt in (
+        (query, i8), (target, i8), (qlen, i32), (tlen, i32), (endsc, i32),
+        (_np(mat, i8).reshape(-1), i8))]
+    gmax, te, qe, last = (np.zeros(B, i32) for _ in range(4))
+    sat = np.zeros(B, np.uint8)
+    row_max = np.zeros((B, LT), i32)
+    rc = _library("align.cu").bm_align2_host(
+        size, LQV, LT, B, *_ptrs(ins), o_del, e_del, o_ins, e_ins, shift,
+        *_ptrs((gmax, te, qe, sat, row_max, last)))
+    _check(rc, "align2")
+    T = torch.from_numpy
+    return T(gmax), T(te), T(qe), T(sat).bool(), T(row_max), T(last)
 
 
 def _fm_args(dfm):

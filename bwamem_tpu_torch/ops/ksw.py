@@ -7,7 +7,7 @@ seed left and right with the x2 band-doubling retries
 ksw_extend2 per lane; ``ksw_global2_batched`` is ksw_global2
 (software/ksw.c:501-585) with the traceback on the device.  On CUDA
 tensors each launches its kernel (csrc/extend.cu: one warp per lane;
-csrc/global.cu: one thread per lane); on CPU tensors each runs its plain
+csrc/global.cu: one warp per lane); on CPU tensors each runs its plain
 version below, the JAX package's lock-step DP (each row vectorized over
 the query and over lanes, the F dependency resolved by a prefix max) with
 a Python loop over rows.
@@ -469,9 +469,8 @@ _GLO_LQ = (128,)   # LQ values the global kernel is instantiated for
 
 def global_cuda(query, target, qlen, tlen, mat, o_del: int, e_del: int,
                 o_ins: int, e_ins: int, w, LQ: int, LT: int):
-    """Launch the global-alignment kernel (csrc/global.cu bm_global2); the
-    direction scratch [B, LT, LQ] is allocated here and not cleared: the
-    kernel writes every cell of each row it visits."""
+    """Launch the global-alignment kernel (csrc/global.cu bm_global2): one
+    warp per lane, its direction bytes in shared memory."""
     if LQ not in _GLO_LQ:
         raise ValueError(f"the global kernel is built for LQ in {_GLO_LQ}, "
                          f"got {LQ}")
@@ -487,13 +486,12 @@ def global_cuda(query, target, qlen, tlen, mat, o_del: int, e_del: int,
     ops = torch.empty(B, LT + LQ, dtype=torch.uint8, device=dev)
     if B == 0:
         return score, ops, n_ops, rem_i, rem_k
-    z = torch.empty(B, LT, LQ, dtype=torch.uint8, device=dev)
     lib = _kernels.library()
     _kernels.GLOBAL2.count()
     rc = lib.bm_global2(LQ, LT, B, q.data_ptr(), t.data_ptr(),
                         ql.data_ptr(), tl.data_ptr(), wv.data_ptr(),
                         m.data_ptr(), o_del, e_del, o_ins, e_ins,
-                        z.data_ptr(), score.data_ptr(), ops.data_ptr(),
+                        score.data_ptr(), ops.data_ptr(),
                         n_ops.data_ptr(), rem_i.data_ptr(), rem_k.data_ptr(),
                         _kernels.stream_of(score))
     _kernels.check(rc, "global2")

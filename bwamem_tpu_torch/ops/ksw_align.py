@@ -5,7 +5,7 @@ are SSE2 Farrar-striped kernels (software/ksw.c:110-364); their result
 equals standard SW over a virtual query padded to ceil(qlen/p)*p
 positions with zero-score pads, with u8 saturation reproduced by
 clipping.  ``ksw_align_batched`` runs one such pass per lane: on CUDA
-tensors the kernel csrc/align.cu, one thread per lane; on CPU tensors
+tensors the kernel csrc/align.cu, one warp per lane; on CPU tensors
 the plain version below, the JAX package's row loop vectorized over
 lanes and the virtual query.
 
@@ -102,7 +102,8 @@ _ALN_LQV = (128,)   # LQV values the kernel is instantiated for
 def align_cuda(query, target, qlen, tlen, mat, o_del: int, e_del: int,
                o_ins: int, e_ins: int, endsc, shift: int, size: int,
                LQV: int, LT: int):
-    """Launch the local-SW kernel (csrc/align.cu bm_align2)."""
+    """Launch the local-SW kernel (csrc/align.cu bm_align2): one warp per
+    lane."""
     if LQV not in _ALN_LQV or size not in (1, 2):
         raise ValueError(f"the local-SW kernel is built for LQV in "
                          f"{_ALN_LQV} and size 1 or 2, got {LQV}, {size}")

@@ -33,7 +33,10 @@ Phases, each printing one line with its own numbers and seconds:
    operations over 33.5 T/s, whichever is longer (see bound()), at every
    bucket; the extensions' records also the cells the DP visits (each
    row's narrowed band), counted by the kernel's host emulation
-   (ops/emulate.py), whose outputs must equal the kernel's;
+   (ops/emulate.py), whose outputs must equal the kernel's; align2's, at
+   both passes, also the bound over the cells it ran (the virtual query
+   by the rows computed, from its own outputs); global2's and align2's
+   the device memory their wrappers hold beyond the outputs (scratch);
 3. goldens: ``mem`` SE, SE -a -M and PE on tests/data through
    ``bwamem_tpu_torch.cli --device cuda``, byte-identical to the goldens
    (without @PG), then the -v 4 SE, -v 4 PE and -v 5 traces of the
@@ -183,6 +186,38 @@ def cuda_ms(fn, reps, warm=True):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps, out
+
+
+def profiler_ms(fn, name, reps=3):
+    """The device time per launch of the CUDA kernels whose name holds
+    `name`, by torch.profiler: the kernel alone, without its wrapper's
+    host work and checks, which CUDA events around the call include.
+    Divided by the launches the profiler recorded, which can be fewer
+    than were made.  None where it recorded no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if name in e.key]
+    n = sum(e.count for e in seen)
+    us = sum(getattr(e, "self_device_time_total", 0) for e in seen)
+    return us / n / 1e3 if n else None
+
+
+def scratch_bytes(fn):
+    """Device memory that a call holds at its peak beyond what it returns:
+    the scratch its wrapper allocates."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base - nbytes(out)
 
 
 def max_err(pairs):
@@ -590,11 +625,13 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
     if err:
         raise RuntimeError(f"{label}: global2 differs ({err})")
     cells = band_cells(sc[0], sc[1], sc[2])
-    rec["global2"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
-                               max_abs_err=err, lanes=W, LQ=GLQ, LT=GLT,
-                               cells=cells,
-                               **bound(nbytes(args) + nbytes(ko),
-                                       OPS_PER_CELL * cells)))
+    rec["global2"].append(dict(
+        index=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err, lanes=W,
+        LQ=GLQ, LT=GLT, cells=cells,
+        profiler_ms=profiler_ms(lambda: tks.global_cuda(*args),
+                                "global_kernel"),
+        device_scratch_bytes=scratch_bytes(lambda: tks.global_cuda(*args)),
+        **bound(nbytes(args) + nbytes(ko), OPS_PER_CELL * cells)))
 
     # align2: the read against a ~500 bp window around it, WAVE lanes,
     # u8 and i16 passes, a third of the lanes with an endsc stop
@@ -610,6 +647,7 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
     endsc = np.where(rng.random(W) < 0.33, rng.integers(20, 80, W),
                      0x10000).astype(np.int32)
     res = dict(index=label, lanes=W, LT=ALT, max_abs_err=0)
+    cells = int((sc[0].astype(np.int64) * sc[1]).sum())
     for size in (1, 2):
         shift = -int(mat.min()) if size == 1 else 0
         args = (T(qb), T(tb), T(sc[0]), T(sc[1]), mat, *gap, T(endsc),
@@ -620,14 +658,29 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
         if err:
             raise RuntimeError(f"{label}: align2 size {size} differs ({err})")
         tag = "u8" if size == 1 else "i16"
-        res.update({f"ms_{tag}": k_ms, f"plain_ms_{tag}": p_ms})
+        # the cells run: vlen (the virtual query) by the rows the kernel
+        # computed (last + 1), from its own outputs
+        p = 16 if size == 1 else 8
+        run = int(((sc[0].astype(np.int64) + p - 1) // p * p
+                   * (ko[5].cpu().numpy().astype(np.int64) + 1)).sum())
+        bd = bound(nbytes(args) + nbytes(ko), OPS_PER_CELL * cells)
+        res.update({f"ms_{tag}": k_ms, f"plain_ms_{tag}": p_ms,
+                    f"profiler_ms_{tag}": profiler_ms(
+                        lambda: tka.align_cuda(*args),
+                        f"align_kernel<{size}"),
+                    f"bound_ms_{tag}": bd["bound_ms"],
+                    f"bound_by_{tag}": bd["bound_by"],
+                    f"cells_run_{tag}": run,
+                    f"bound_run_ms_{tag}": bound(nbytes(args) + nbytes(ko),
+                                                 OPS_PER_CELL * run)
+                    ["bound_ms"]})
         if size == 1:
-            cells = int((sc[0].astype(np.int64) * sc[1]).sum())
-            res.update(cells=cells, **bound(nbytes(args) + nbytes(ko),
-                                            OPS_PER_CELL * cells))
+            res.update(cells=cells, device_scratch_bytes=scratch_bytes(
+                lambda: tka.align_cuda(*args)), **bd)
     # the kernels line reports the u8 pass: bwa's mate rescue of reads
     # shorter than 250 bp takes it (KSW_XBYTE when l_ms * a < 250)
-    res.update(ms=res["ms_u8"], plain_ms=res["plain_ms_u8"])
+    res.update(ms=res["ms_u8"], plain_ms=res["plain_ms_u8"],
+               profiler_ms=res["profiler_ms_u8"])
     rec["align2"].append(res)
 
 
@@ -983,8 +1036,14 @@ def main(argv):
                       os.path.join(BIG, "reads_se.fq"), rec)
     if kernels_only:
         say("kernels_only", root=os.path.abspath(root), smi=smi,
-            ms={k: {r.get("bucket", "-") + "@" + r["index"]: r["ms"]
-                    for r in v} for k, v in rec.items() if v})
+            ms={k: {**{r.get("bucket", "-") + "@" + r["index"]: r["ms"]
+                       for r in v},
+                    **{"i16@" + r["index"]: r["ms_i16"]
+                       for r in v if "ms_i16" in r},
+                    **{"profiler" + key[11:] + "@" + r["index"]: r[key]
+                       for r in v for key in r
+                       if key.startswith("profiler_ms")}}
+                for k, v in rec.items() if v})
         return 0
 
     # 3-4 on the flat route: launch counts zeroed just before, read just
@@ -1088,7 +1147,13 @@ def main(argv):
             bucket_bound_ms={r["bucket"]: r["bound_ms"]
                              for r in rec[k.name]
                              if "bucket" in r and "bound_ms" in r
-                             and r["index"] == main["index"]}))
+                             and r["index"] == main["index"]},
+            # align2's i16 pass and the bounds over the cells run, the
+            # wrappers' device scratch
+            **{key: v for key, v in main.items()
+               if key.startswith(("ms_", "plain_ms_", "bound_ms_",
+                                  "bound_run_ms_", "device_scratch",
+                                  "profiler_ms"))}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -232,6 +232,50 @@ def test_align2_kernel_matches_plain(engine, size):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("B", [1, 33, 1025])
+def test_global2_kernel_at_the_edges(engine, B):
+    """bm_global2 (one warp per lane, one a block, the direction bytes in
+    shared memory) against global_plain on the edge lanes (tlen 0, qlen 1,
+    qlen LQ, tlen LT, w 1, w above both lengths, degenerate bands), every
+    output; the launch counted."""
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.ksw import global_cuda, global_plain
+    from tests.test_torch_kernels_host import GLO_EDGES, _glo_args, _glo_lanes
+    eng, _ = engine
+    args = tuple(x.to(eng.device) if isinstance(x, torch.Tensor) else x
+                 for x in _glo_args(_glo_lanes(list(GLO_EDGES), B, B)))
+    n0 = _kernels.GLOBAL2.launches
+    got = global_cuda(*args)
+    torch.cuda.synchronize()
+    assert _kernels.GLOBAL2.launches == n0 + 1
+    for a, b in zip(got, global_plain(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("size", [1, 2], ids=["u8", "i16"])
+@pytest.mark.parametrize("B", [1, 33, 513])
+def test_align2_kernel_at_the_edges(engine, B, size):
+    """bm_align2 (one warp per lane, one a block) against align_plain on
+    the edge lanes (qlen not a multiple of p, endsc met on the first row,
+    qlen LQ, tlen LT, tlen 0), under match scores 1 and 3 (u8
+    saturation), every output; the launch counted."""
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.ksw_align import align_cuda, align_plain
+    from tests.test_torch_kernels_host import (ALN_EDGES, _aln_args,
+                                               _aln_lanes, _aln_mat)
+    eng, _ = engine
+    lanes = _aln_lanes(list(ALN_EDGES), B + size, B)
+    for match in (1, 3):
+        args = tuple(x.to(eng.device) if isinstance(x, torch.Tensor) else x
+                     for x in _aln_args(lanes, size, _aln_mat(match)))
+        n0 = _kernels.ALIGN2.launches
+        got = align_cuda(*args)
+        torch.cuda.synchronize()
+        assert _kernels.ALIGN2.launches == n0 + 1
+        for a, b in zip(got, align_plain(*args)):
+            assert torch.equal(a, b)
+
+
 def _opt():
     from bwamem_tpu_torch.config import MemOptions, fill_scmat
     opt = MemOptions()

@@ -1,12 +1,15 @@
-"""The extension and SMEM kernels' own algorithms on the CPU: csrc/extend.cu
-(one warp per seed) and csrc/smem.cu (a group of threads per read) built
+"""The kernels written against a team of lanes, their own algorithms on the
+CPU: csrc/extend.cu (one warp per seed), csrc/smem.cu (a group of threads
+per read), csrc/global.cu and csrc/align.cu (one warp per alignment) built
 by g++ with each group's lanes as arrays (bwamem_tpu_torch/ops/emulate.py)
 and held against the plain PyTorch versions (ops/ksw.py extend_lr_plain,
-extend2_plain; ops/smem.py superstep_plain, smem_iter_step_plain) on the
-bundled genome's seeds and reads and on lanes at the edges: one-sided
-seeds, qlen 1 and LQ, tlen LT, z-drop 0, h0 0, bands above the clamp,
-all-N reads, buffer and stream overflows.  Integer outputs: equality.
-Skips only where g++ is missing."""
+extend2_plain, global_plain; ops/smem.py superstep_plain,
+smem_iter_step_plain; ops/ksw_align.py align_plain) on the bundled
+genome's seeds and reads and on lanes at the edges: one-sided seeds, qlen
+1 and LQ, tlen 0 and LT, z-drop 0, h0 0, bands of 1 and above the clamp,
+degenerate bands, u8 saturation, all-N reads, buffer and stream
+overflows.  Integer outputs: equality.  Skips only where g++ is
+missing."""
 
 import os
 
@@ -388,3 +391,210 @@ def test_iter_step_host(bundled, L, M):
         assert bool(got[7].any())
     else:
         assert bool(got[8].any())                    # some lanes re-seed
+
+
+# ---- global alignment with traceback and local SW (one warp per lane) ----
+
+GLQ, GLT = 128, 160          # global2's widths on the wave path
+ALQ, ALT = 128, 544          # align2's
+
+
+def _related(rng, qlen, tlen):
+    """A query of qlen bases and a target of tlen: the query with 2%
+    substitutions and, on half the calls, a 1-3 base indel, then random
+    bases."""
+    q = rng.integers(0, 4, qlen).astype(np.int8)
+    t = q.copy()
+    mut = rng.random(qlen) < 0.02
+    t[mut] = rng.integers(0, 4, int(mut.sum()))
+    if qlen > 10 and rng.random() < 0.5:
+        at, k = int(rng.integers(3, qlen - 3)), int(rng.integers(1, 4))
+        t = (np.concatenate([t[:at], rng.integers(0, 4, k), t[at:]])
+             if rng.random() < 0.5 else np.delete(t, range(at, at + k)))
+    t = np.concatenate([t, rng.integers(0, 4, max(0, tlen - len(t)))])
+    return q, t[:tlen].astype(np.int8)
+
+
+# the edge lanes: kind -> (qlen, tlen, w) for a lane, from rng
+GLO_EDGES = {
+    "tlen0": lambda r: (int(r.integers(1, GLQ + 1)), 0,
+                        int(r.integers(1, 50))),
+    "qlen1": lambda r: (1, int(r.integers(1, 40)), int(r.integers(1, 30))),
+    "qlen_LQ": lambda r: (GLQ, int(r.integers(100, GLT + 1)),
+                          int(r.choice([1, 5, 40, 300]))),
+    "tlen_LT": lambda r: (int(r.integers(90, GLQ + 1)), GLT,
+                          int(r.integers(1, 80))),
+    "w1": lambda r: (int(r.integers(1, GLQ + 1)), int(r.integers(1, GLT + 1)),
+                     1),
+    "w_wide": lambda r: (int(r.integers(1, GLQ + 1)),
+                         int(r.integers(1, GLT + 1)),
+                         int(r.integers(GLT + 1, 1000))),
+    "degenerate": lambda r: (int(r.integers(1, 40)),
+                             int(r.integers(100, GLT + 1)),
+                             int(r.integers(1, 12))),
+}
+
+
+def _glo_lanes(kinds, seed, B):
+    """B global2 lanes, packed, of the given edge kinds in turn."""
+    rng = np.random.default_rng(seed)
+    qb = np.full((B, GLQ), 4, np.int8)
+    tb = np.full((B, GLT), 4, np.int8)
+    sc = np.zeros((3, B), np.int32)
+    for b in range(B):
+        ql, tl, w = GLO_EDGES[kinds[b % len(kinds)]](rng)
+        q, t = _related(rng, ql, tl)
+        qb[b, :ql], tb[b, :tl] = q, t
+        sc[:, b] = ql, tl, w
+    return _pk(qb), _pk(tb), sc[0], sc[1], sc[2]
+
+
+def _glo_args(lanes):
+    opt = _opt()
+    q, t, ql, tl, w = lanes
+    return (_T(q), _T(t), _T(ql), _T(tl), _mat(), opt.o_del, opt.e_del,
+            opt.o_ins, opt.e_ins, _T(w), GLQ, GLT)
+
+
+def _seed_windows(bundled, data_dir, n):
+    """The bundled reads with a chain and the reference start of their
+    first seed (the read's place), as chip_smoke.py builds its lanes."""
+    from bwamem_tpu_torch.io.fastq import parse_fastx
+    from bwamem_tpu_torch.ops.engine import TorchSeedingEngine
+    fm, bns, _ = bundled
+    reads = list(parse_fastx(os.path.join(data_dir, "reads_se.fq")))[:n]
+    chain_off, seed_off, s_rb, s_qb, _ = TorchSeedingEngine(
+        fm, "cpu").chain_batch(_opt(), reads).flat
+    return bns, [(r.seq_nt4.astype(np.int8),
+                  int(s_rb[seed_off[chain_off[i]]])
+                  - int(s_qb[seed_off[chain_off[i]]]))
+                 for i, r in enumerate(reads)
+                 if chain_off[i + 1] > chain_off[i]]
+
+
+def _window(bns, rng, beg, end):
+    """The reference on [beg, end) with 2% substitutions and, on half the
+    calls, a 1-3 base indel (chip_smoke.py check_sw_kernels)."""
+    from bwamem_tpu_torch.index.bntseq import get_seq
+    ref = get_seq(bns.l_pac, bns.pac, beg, end).astype(np.int8)
+    mut = rng.random(len(ref)) < 0.02
+    ref[mut] = rng.integers(0, 4, int(mut.sum()))
+    if len(ref) > 20 and rng.random() < 0.5:
+        at, k = int(rng.integers(5, len(ref) - 5)), int(rng.integers(1, 4))
+        ref = (np.concatenate([ref[:at], rng.integers(0, 4, k), ref[at:]])
+               if rng.random() < 0.5 else np.delete(ref, range(at, at + k)))
+    return ref.astype(np.int8)
+
+
+@pytest.mark.parametrize("kind", ["reads"] + list(GLO_EDGES))
+def test_global2_host(bundled, data_dir, kind):
+    """bm_global2's warp per lane against global_plain, every output
+    (the ops row with its zero tail): the bundled reads against mutated
+    windows at their seeds with chip_smoke.py's bands, and the edge
+    lanes (tlen 0, qlen 1, qlen LQ, tlen LT, w 1, w above both lengths,
+    degenerate bands)."""
+    from bwamem_tpu_torch.ops.ksw import global_plain
+    if kind == "reads":
+        bns, places = _seed_windows(bundled, data_dir, 40)
+        rng = np.random.default_rng(5)
+        B = len(places)
+        qb = np.full((B, GLQ), 4, np.int8)
+        tb = np.full((B, GLT), 4, np.int8)
+        sc = np.zeros((3, B), np.int32)
+        for b, (q, st) in enumerate(places):
+            t = _window(bns, rng, st, st + len(q)
+                        + int(rng.integers(-8, 17)))[:GLT]
+            qb[b, :len(q)], tb[b, :len(t)] = q, t
+            sc[:, b] = (len(q), len(t),
+                        abs(len(t) - len(q)) + int(rng.integers(3, 40)))
+        lanes = (_pk(qb), _pk(tb), sc[0], sc[1], sc[2])
+    else:
+        lanes = _glo_lanes([kind], len(kind), 24)
+    args = _glo_args(lanes)
+    got = emulate.global2(*args)
+    _equal(got, global_plain(*args))
+    assert got[1].shape == (len(lanes[2]), GLQ + GLT)
+    if kind == "tlen0":
+        assert (got[2] == 0).all() and (got[3] == -1).all()
+    if kind == "degenerate":
+        assert (got[0] < -(1 << 29)).any()     # a score from kNeg
+
+
+def _aln_mat(match):
+    from bwamem_tpu_torch.config import fill_scmat
+    return torch.from_numpy(np.asarray(fill_scmat(match, 4), np.int8))
+
+
+# kind -> (qlen, tlen, endsc) for a lane, from rng
+ALN_EDGES = {
+    "qlen_odd": lambda r: (int(r.choice([1, 7, 9, 15, 17, 33, 101, 127])),
+                           int(r.integers(1, ALT + 1)), 0x10000),
+    "endsc_first_row": lambda r: (int(r.integers(1, ALQ + 1)),
+                                  int(r.integers(1, ALT + 1)), 1),
+    "qlen_LQ": lambda r: (ALQ, int(r.integers(ALQ, ALT + 1)),
+                          int(r.choice([0x10000, 60]))),
+    "tlen_LT": lambda r: (int(r.integers(1, ALQ + 1)), ALT, 0x10000),
+    "tlen0": lambda r: (int(r.integers(1, ALQ + 1)), 0, 0x10000),
+    "saturation": lambda r: (ALQ, int(r.integers(ALQ, ALT + 1)), 0x10000),
+}
+
+
+def _aln_lanes(kinds, seed, B):
+    """B align2 lanes of the given edge kinds in turn: the query inside
+    its target (mutated), at a random offset."""
+    rng = np.random.default_rng(seed)
+    qb = np.full((B, ALQ), 4, np.int8)
+    tb = np.full((B, ALT), 4, np.int8)
+    sc = np.zeros((3, B), np.int32)
+    for b in range(B):
+        ql, tl, endsc = ALN_EDGES[kinds[b % len(kinds)]](rng)
+        q, t = _related(rng, ql, tl)
+        off = int(rng.integers(0, max(1, tl - ql)))
+        t = np.concatenate([rng.integers(0, 4, off).astype(np.int8), t])[:tl]
+        qb[b, :ql], tb[b, :tl] = q, t
+        sc[:, b] = ql, tl, endsc
+    return qb, tb, sc[0], sc[1], sc[2]
+
+
+def _aln_args(lanes, size, mat):
+    opt = _opt()
+    q, t, ql, tl, endsc = lanes
+    shift = -int(mat.min()) if size == 1 else 0
+    return (_T(q), _T(t), _T(ql), _T(tl), mat, opt.o_del, opt.e_del,
+            opt.o_ins, opt.e_ins, _T(endsc), shift, size, ALQ, ALT)
+
+
+@pytest.mark.parametrize("kind", ["reads"] + list(ALN_EDGES))
+@pytest.mark.parametrize("size", [1, 2], ids=["u8", "i16"])
+def test_align2_host(bundled, data_dir, kind, size):
+    """bm_align2's warp per lane (u8 and i16) against align_plain, every
+    output: the bundled reads against ~500 bp mutated windows around
+    them, a third with an endsc stop (chip_smoke.py's lanes), and the edge
+    lanes (qlen not a multiple of p, endsc met on the first row, qlen LQ,
+    tlen LT, tlen 0, u8 saturation under a match score of 3)."""
+    from bwamem_tpu_torch.ops.ksw_align import align_plain
+    if kind == "reads":
+        bns, places = _seed_windows(bundled, data_dir, 40)
+        rng = np.random.default_rng(6)
+        B = len(places)
+        qb = np.full((B, ALQ), 4, np.int8)
+        tb = np.full((B, ALT), 4, np.int8)
+        sc = np.zeros((2, B), np.int32)
+        for b, (q, st) in enumerate(places):
+            t = _window(bns, rng, st - 200, st + len(q) + 200)[:ALT]
+            qb[b, :len(q)], tb[b, :len(t)] = q, t
+            sc[:, b] = len(q), len(t)
+        endsc = np.where(rng.random(B) < 0.33, rng.integers(20, 80, B),
+                         0x10000).astype(np.int32)
+        lanes = (qb, tb, sc[0], sc[1], endsc)
+    else:
+        lanes = _aln_lanes([kind], len(kind) + size, 24)
+    mat = _aln_mat(3 if kind == "saturation" else 1)
+    args = _aln_args(lanes, size, mat)
+    got = emulate.align2(*args)
+    _equal(got, align_plain(*args))
+    if kind == "saturation":
+        assert bool(got[3].any()) == (size == 1)
+    if kind == "endsc_first_row":
+        last = got[5].numpy()
+        assert (last[lanes[3] > 0] == got[1].numpy()[lanes[3] > 0]).all()
