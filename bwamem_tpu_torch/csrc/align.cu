@@ -79,7 +79,11 @@ BM_HD void align_lane(const TM& tm, const AlnArgs& a, const int8_t* mat,
   constexpr int NL = TM::NL, CW = 32 * S, K = LQV / CW;
   static_assert(TM::kG == 32 && K * CW == LQV, "one warp, whole chunks");
   const int LT = a.LT;
-  const int qlen = a.qlen[b], tlen = a.tlen[b], endsc = a.endsc[b];
+  // lengths inside the bucket: a longer one from a caller that skipped
+  // the host check reads and writes nothing past the lane's rows
+  const int qlen = bm_min(bm_max(a.qlen[b], 0), LQV);
+  const int tlen = bm_min(bm_max(a.tlen[b], 0), LT);
+  const int endsc = a.endsc[b];
   const int p = SIZE == 1 ? 16 : 8;
   const int vlen = (qlen + p - 1) / p * p;
   const int sat = 255 - a.shift;

@@ -280,11 +280,13 @@ BM_HD void extend_lr_lane(const TM& tm, const ExtArgs& a, const int8_t* mat,
   int aw0 = w0, aw1 = w0;
 #pragma unroll 1
   for (int side = 0; side < 2; ++side) {
-    const int qlen = side ? a.rlq[b] : a.llq[b];
+    // lengths inside the bucket: a longer one from a caller that skipped
+    // the host check reads nothing past the lane's rows
+    const int qlen = bm_min(side ? a.rlq[b] : a.llq[b], LQ);
     if (qlen <= 0) continue;
     const int8_t* qp = (side ? a.rq : a.lq) + qo;
     const int8_t* tp = (side ? a.rt : a.lt) + to;
-    const int tlen = side ? a.rlt[b] : a.llt[b];
+    const int tlen = bm_min(side ? a.rlt[b] : a.llt[b], a.LT);
     const int bonus = side ? a.pc3 : a.pc5;
     const int32_t h0 = score;   // the seed's score, then the left's
     Ext6 r;
@@ -338,8 +340,9 @@ template <int LQ, class TM>
 BM_HD void extend2_lane(const TM& tm, const Ext2Args& a, const int8_t* mat,
                         int b, int64_t* cells) {
   const Ext6 r = ksw_extend2<LQ>(
-      tm, a.q + static_cast<int64_t>(b) * (LQ / 2), a.qlen[b],
-      a.t + static_cast<int64_t>(b) * (a.LT / 2), a.tlen[b], mat, a.o_del,
+      tm, a.q + static_cast<int64_t>(b) * (LQ / 2), bm_min(a.qlen[b], LQ),
+      a.t + static_cast<int64_t>(b) * (a.LT / 2), bm_min(a.tlen[b], a.LT),
+      mat, a.o_del,
       a.e_del, a.o_ins, a.e_ins, a.w[b], a.end_bonus[b], a.zdrop, a.h0[b],
       cells);
   if (tm.lane(0) != 0) return;

@@ -135,7 +135,11 @@ BM_HD void global_lane(const TM& tm, const GloArgs& a, const int8_t* mat,
   constexpr int NL = TM::NL, CW = 32 * S, K = LQ / CW;
   static_assert(TM::kG == 32 && K * CW == LQ, "one warp, whole chunks");
   const int LT = a.LT;
-  const int qlen = a.qlen[b], tlen = a.tlen[b], w = a.w[b];
+  // lengths inside the bucket: a longer one from a caller that skipped
+  // the host check reads and writes nothing past the lane's rows
+  const int qlen = bm_min(bm_max(a.qlen[b], 0), LQ);
+  const int tlen = bm_min(bm_max(a.tlen[b], 0), LT);
+  const int w = a.w[b];
   const int e_del = a.e_del, e_ins = a.e_ins;
   const int oe_del = a.o_del + e_del, oe_ins = a.o_ins + e_ins;
   const int8_t* qpk = a.q + static_cast<int64_t>(b) * (LQ / 2);

@@ -21,15 +21,17 @@ namespace {
 
 BM_HD void sa_walk_lane(const FmView& f, const void* sa, int sa_is64,
                         int64_t mask, int shift, const int64_t* keys,
-                        int max_steps, int64_t* vals, uint8_t* over,
-                        int i) {
+                        int max_steps, void* vals, int vals_is64,
+                        uint8_t* over, int i) {
   int64_t k = keys[i];
   int steps = 0;
-  while ((k & mask) != 0 && steps < max_steps) {
+  // a key outside [0, seq_len] reads no row: it is over
+  const bool in = k >= 0 && k <= f.seq_len;
+  while (in && (k & mask) != 0 && steps < max_steps) {
     k = fm_inv_psi(f, k);
     ++steps;
   }
-  const bool ov = (k & mask) != 0;
+  const bool ov = !in || (k & mask) != 0;
   int64_t v = -1;
   if (!ov) {
     const int64_t si = k >> shift;
@@ -37,30 +39,35 @@ BM_HD void sa_walk_lane(const FmView& f, const void* sa, int sa_is64,
                          : static_cast<int64_t>(
                                static_cast<const int32_t*>(sa)[si]));
   }
-  vals[i] = v;
+  // the values in the index's coordinate dtype, the flag as a bool byte
+  if (vals_is64)
+    static_cast<int64_t*>(vals)[i] = v;
+  else
+    static_cast<int32_t*>(vals)[i] = static_cast<int32_t>(v);
   over[i] = ov;
 }
 
 #ifdef __CUDACC__
 __global__ void sa_walk_kernel(FmView f, const void* sa, int sa_is64,
                                int64_t mask, int shift, const int64_t* keys,
-                               int n, int max_steps, int64_t* vals,
-                               uint8_t* over) {
+                               int n, int max_steps, void* vals,
+                               int vals_is64, uint8_t* over) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n)
-    sa_walk_lane(f, sa, sa_is64, mask, shift, keys, max_steps, vals, over,
-                 i);
+    sa_walk_lane(f, sa, sa_is64, mask, shift, keys, max_steps, vals,
+                 vals_is64, over, i);
 }
 #endif
 
 }  // namespace
 
 #ifdef __CUDACC__
+// vals: int64 [n] (vals_is64) or int32 [n]; over: bool [n].
 extern "C" int bm_sa_walk(const void* blocks, int64_t primary,
                           int64_t seq_len, const void* L2, const void* sa,
                           int sa_is64, int64_t sa_intv, const void* keys,
-                          int n, int max_steps, void* vals, void* over,
-                          void* stream) {
+                          int n, int max_steps, void* vals, int vals_is64,
+                          void* over, void* stream) {
   FmView f;
   f.blocks = static_cast<const uint32_t*>(blocks);
   f.primary = primary;
@@ -73,8 +80,8 @@ extern "C" int bm_sa_walk(const void* blocks, int64_t primary,
     sa_walk_kernel<<<(n + threads - 1) / threads, threads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
         f, sa, sa_is64, sa_intv - 1, shift,
-        static_cast<const int64_t*>(keys), n, max_steps,
-        static_cast<int64_t*>(vals), static_cast<uint8_t*>(over));
+        static_cast<const int64_t*>(keys), n, max_steps, vals, vals_is64,
+        static_cast<uint8_t*>(over));
   return static_cast<int>(cudaGetLastError());
 }
 #endif

@@ -207,6 +207,12 @@ BM_HD bool smem1_group(const TM& tm, const FmView& f, const int8_t* q,
   return true;
 }
 
+// A lane's query length inside its bucket [0, L]: a longer one from a
+// caller that skipped the host check reads no base past the lane's row.
+BM_HD int bucket_len(int qlen, int L) {
+  return qlen < 0 ? 0 : (qlen > L ? L : qlen);
+}
+
 // (qb, qlen - qe) lexicographic order of the reference's merge key.
 BM_HD bool key_less(const Mem& a, const Mem& b) {
   return a.qb < b.qb || (a.qb == b.qb && a.qe > b.qe);
@@ -240,7 +246,7 @@ BM_HD void superstep_group(const TM& tm, GroupBuf<MAXM>& buf,
                            int b) {
   constexpr int NL = TM::NL, G = TM::kG;
   const int8_t* q = q_pk + static_cast<int64_t>(b) * (L >> 1);
-  const int qlen = qlen_a[b];
+  const int qlen = bucket_len(qlen_a[b], L);
   const int64_t min_intv = min_intv_a[b];
   const int64_t base = static_cast<int64_t>(b) * out_cap;
   const Mem* m1 = buf.m1;
@@ -374,10 +380,14 @@ BM_HD void iter_step_group(const TM& tm, GroupBuf<MAXM>& buf,
                            const PassOut& o1, uint8_t* need2_a,
                            const PassOut& o2, int b) {
   const int8_t* q = q_pk + static_cast<int64_t>(b) * (L >> 1);
-  const int qlen = qlen_a[b];
+  const int qlen = bucket_len(qlen_a[b], L);
+  const int x = x_a[b];
   const Mem* mem = buf.m1;
-  const int n1 = pass_group<MAXM>(tm, buf, f, q, qlen, active[b] != 0,
-                                  x_a[b], min_intv_a[b], M, m_out, o1, b);
+  // a start outside the lane's row reads nothing: the lane runs as
+  // inactive
+  const int n1 = pass_group<MAXM>(tm, buf, f, q, qlen,
+                                  active[b] != 0 && x >= 0 && x < L, x,
+                                  min_intv_a[b], M, m_out, o1, b);
   int best_len = -1, best = 0;
   if (n1 > 0) best = longest_mem(mem, n1, &best_len);
   const bool need2 = n1 > 0 && split_len[b] > 0 &&

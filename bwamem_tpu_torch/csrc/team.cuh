@@ -50,6 +50,11 @@ BM_HD T bm_max(T a, T b) {
   return a > b ? a : b;
 }
 
+template <class T>
+BM_HD T bm_min(T a, T b) {
+  return a < b ? a : b;
+}
+
 template <int G>
 struct HostTeam {
   static constexpr int NL = G;

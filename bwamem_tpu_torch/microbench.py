@@ -21,6 +21,14 @@ variants:
           (4096, 128) table, transposed (a+b) and not (c), OK or WRONG
           RESULT against the numpy gather
   all     each of the above
+  launch  the host cost of one gather_rows call of --ids rows from a
+          64 MiB table of 16-word rows (not in `all`): each step of the
+          call timed alone over LAUNCH_CALLS calls by
+          time.perf_counter_ns (the checks; the stream handle; the input
+          conversions, which are no-ops here; torch.empty; the ctypes
+          call, which launches, and the same for no ids, which does not;
+          the count), then the whole call by the host clock and by CUDA
+          events, its device time, and index_select's
 
 Tables are made on the device from --seed with a torch.Generator:
 --tables gives their sizes in bytes (suffix K, M, G: powers of 1024),
@@ -51,6 +59,7 @@ from .ops import occ
 
 L2_BYTES = 50 * 10 ** 6       # the H100's L2
 LANES, M = 8192, 16           # the main path's lanes and SMEM width
+LAUNCH_CALLS = 1000           # calls each step of `launch` is timed over
 _UNITS = {"K": 1 << 10, "M": 1 << 20, "G": 1 << 30}
 
 
@@ -303,6 +312,72 @@ class Bench:
             self.check("gather_rows", ln, out, (table, ids, transpose))
 
 
+def launch_cost(table: torch.Tensor, n: int, seed: int = 0) -> dict:
+    """The host cost of ``occ.gather_rows`` at n ids of table, step by
+    step: each step alone over LAUNCH_CALLS calls, ns per call by
+    time.perf_counter_ns; then the whole call (enqueue, by the host
+    clock; and by CUDA events over LAUNCH_CALLS calls, with its device
+    time by CUDA-graph replay) beside index_select.  Launches made here
+    are not counted: the ctypes step calls the entry point directly."""
+    from .ops import _kernels
+    dev = table.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ids = torch.randint(0, table.shape[0], (n,), generator=g, device=dev,
+                        dtype=torch.int64)
+    idx = _kernels.card_of(ids, "launch_cost")
+    lib = _kernels.library()
+    out = torch.empty((n, table.shape[1]), dtype=torch.int32, device=dev)
+    args = (table.data_ptr(), table.shape[0], table.shape[1], ids.data_ptr(),
+            n, 0, out.data_ptr())
+    entry = lib.bm_gather_rows
+    scratch = _kernels.Kernel("launch_cost", "", "", "bm_gather_rows")
+
+    def per_call(fn):
+        fn()
+        t0 = time.perf_counter_ns()
+        for _ in range(LAUNCH_CALLS):
+            fn()
+        dt = time.perf_counter_ns() - t0
+        torch.cuda.synchronize(dev)
+        return dt / LAUNCH_CALLS
+
+    def checks():
+        occ._check_table(table)
+        _kernels.card_of(ids, "gather_rows")
+        if table.get_device() != idx:
+            raise ValueError("another card")
+
+    raw = _kernels._raw_stream
+    steps = {
+        "checks": checks,
+        "stream": lambda: raw(idx),
+        "convert": lambda: (_kernels.on_card(table, torch.int32, idx),
+                            _kernels.on_card(ids, torch.int64, idx)),
+        "empty": lambda: torch.empty((n, table.shape[1]), dtype=torch.int32,
+                                     device=dev),
+        "ctypes_call": lambda: entry(*args, raw(idx)),
+        # the same call for no ids: ctypes and cudaGetLastError, no launch
+        "ctypes_no_launch": lambda: entry(*args[:4], 0, *args[5:], raw(idx)),
+        "count": scratch.count,
+    }
+    res = {"ids": n, "calls": LAUNCH_CALLS,
+           "steps_ns": {k: per_call(fn) for k, fn in steps.items()}}
+
+    def call():
+        return occ.gather_rows(table, ids)
+
+    def take():
+        return torch.index_select(table, 0, ids)
+    for name, fn in (("call", call), ("index_select", take)):
+        res[f"{name}_host_ns"] = per_call(fn)
+        res[f"{name}_ms"] = timed(fn, dev, LAUNCH_CALLS)[0]
+        res[f"{name}_device_ms"] = device_ms(fn, 20)
+    if not torch.equal(call(), take()):
+        raise RuntimeError("gather_rows differs from index_select")
+    return res
+
+
 def load_occ_table(prefix: str, device):
     """(blocks, primary, seq_len) of an index's occ table, on the
     device."""
@@ -318,6 +393,15 @@ def run(args, emit=None, check=None) -> list:
     passed to emit, by default printed as JSON).  check: see the module's
     docstring."""
     b = Bench(args.device, args.seed, args.reps, emit, check)
+    if args.variant == "launch":
+        if b.device.type != "cuda":
+            raise ValueError("launch measures the card's launch path: it "
+                             "has no CPU version")
+        table = make_table((64 << 20) // 64, 16, b.gen(1), b.device)
+        for n in _ints(args.ids):
+            b.line("launch", table, None,
+                   **launch_cost(table, n, args.seed))
+        return b.lines
     variants = (("gather", "chain", "loop", "probe") if args.variant == "all"
                 else (args.variant,))
     sizes = [parse_bytes(s) for s in args.tables.split(",") if s]
@@ -357,7 +441,7 @@ def parser() -> argparse.ArgumentParser:
         prog="python -m bwamem_tpu_torch.microbench",
         description=__doc__.split("\n\n")[0])
     p.add_argument("variant", choices=("gather", "chain", "loop", "probe",
-                                       "all"))
+                                       "all", "launch"))
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=20)

@@ -1,17 +1,24 @@
-"""Build, load and count the hand-written CUDA kernels.
+"""Build, load, launch and count the hand-written CUDA kernels.
 
 The kernels live in ``bwamem_tpu_torch/csrc`` as plain-C entry points
 (no PyTorch headers), built with nvcc for ``sm_90a`` into one shared
 library under ``bwamem_tpu_torch/_build`` at first use, keyed by a hash
 of the sources, and loaded with ctypes.  Each source compiles in its own
-nvcc process, all started together, and one more links them.  Every pointer and the CUDA
-stream are passed as ``c_void_p``; every entry returns
-``cudaGetLastError()`` and the caller raises when it is not 0.
+nvcc process, all started together, and one more links them.  Every
+entry returns ``cudaGetLastError()``.
 
-Each kernel has a ``Kernel`` record holding its launch count: the
-wrapper adds one where it launches the kernel, and nowhere else, with
+Each kernel has a ``Kernel`` record holding its entry point and its
+launch count.  ``Kernel.launch`` is the one launch path of every wrapper:
+the entry point is resolved once, every argument is a plain int (a
+pointer from ``data_ptr()``, a size), the stream is the current stream's
+raw handle, read without building a ``torch.cuda.Stream``, and the call
+raises when the entry returns an error.  It adds one to the count, with
 the launch's shape bucket where the kernel has several (``L256``,
-``LQ512``), so a run can show which buckets it went through.
+``LQ512``), so a run can show which buckets it went through.  A launch
+never synchronises: no wrapper reads a device value on the host.  A
+length that a caller holds on the host (a CPU tensor) is checked there
+(``check_host_lengths``); a length on the card is not read, and each
+kernel bounds its reads by its bucket instead.
 """
 
 import ctypes
@@ -35,15 +42,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 class Kernel:
-    """A kernel's identity and its launch count."""
+    """A kernel's identity, its entry point and its launch count."""
 
-    def __init__(self, name: str, source: str, replaces: str):
+    def __init__(self, name: str, source: str, replaces: str, entry: str):
         self.name = name
         self.source = source
         self.replaces = replaces
+        self.entry = entry
         self.launches = 0
         self.buckets = {}   # "<name>_<bucket>" -> launches
         self._lock = threading.Lock()
+        self._fn = None
 
     def count(self, bucket: str = "") -> None:
         with self._lock:
@@ -52,35 +61,47 @@ class Kernel:
                 key = f"{self.name}_{bucket}"
                 self.buckets[key] = self.buckets.get(key, 0) + 1
 
+    def launch(self, device_index: int, *args, bucket: str = "") -> None:
+        """Call the entry point with args (plain ints) and the current
+        stream of card device_index, raise if the launch was refused, and
+        count it."""
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(library(), self.entry)
+        rc = fn(*args, _raw_stream(device_index))
+        if rc:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {rc}")
+        self.count(bucket)
+
 
 SMEM = Kernel("smem_superstep", "bwamem_tpu_torch/csrc/smem.cu",
-              "bwamem_tpu/ops/pallas_smem.py:1405")
+              "bwamem_tpu/ops/pallas_smem.py:1405", "bm_smem_superstep")
 SA = Kernel("sa_walk", "bwamem_tpu_torch/csrc/sa.cu",
-            "bwamem_tpu/ops/pallas_smem.py:1626")
+            "bwamem_tpu/ops/pallas_smem.py:1626", "bm_sa_walk")
 EXTEND = Kernel("extend_lr", "bwamem_tpu_torch/csrc/extend.cu",
-                "bwamem_tpu/ops/pallas_extend.py:285")
+                "bwamem_tpu/ops/pallas_extend.py:285", "bm_extend_lr")
 EXTEND2 = Kernel("extend2", "bwamem_tpu_torch/csrc/extend.cu",
-                 "bwamem_tpu/ops/pallas_extend.py:285")
+                 "bwamem_tpu/ops/pallas_extend.py:285", "bm_extend2")
 GLOBAL2 = Kernel("global2", "bwamem_tpu_torch/csrc/global.cu",
-                 "bwamem_tpu/ops/pallas_global.py:266")
+                 "bwamem_tpu/ops/pallas_global.py:266", "bm_global2")
 ALIGN2 = Kernel("align2", "bwamem_tpu_torch/csrc/align.cu",
-                "bwamem_tpu/ops/pallas_align.py:180")
+                "bwamem_tpu/ops/pallas_align.py:180", "bm_align2")
 SMEM1 = Kernel("smem1_step", "bwamem_tpu_torch/csrc/smem.cu",
                "bwamem_tpu/ops/pallas_smem.py:1350 and "
-               "bwamem_tpu/ops/pallas_bigsmem.py:612")
+               "bwamem_tpu/ops/pallas_bigsmem.py:612", "bm_smem_iter_step")
 BUILD = Kernel("build_rows", "bwamem_tpu_torch/csrc/extbuild.cu",
-               "bwamem_tpu/ops/pallas_extbuild.py:245")
+               "bwamem_tpu/ops/pallas_extbuild.py:245", "bm_build_rows")
 GATHER = Kernel("gather_rows", "bwamem_tpu_torch/csrc/occ.cu",
                 "bwamem_tpu/ops/pallas_occ.py:90, "
                 "bwamem_tpu/ops/pallas_onehot.py:68 and "
-                "tools/probe_mosaic_features.py:62,114")
+                "tools/probe_mosaic_features.py:62,114", "bm_gather_rows")
 OCC4 = Kernel("occ4", "bwamem_tpu_torch/csrc/occ.cu",
-              "bwamem_tpu/ops/pallas_occ.py:90 (occ4_via_pallas)")
+              "bwamem_tpu/ops/pallas_occ.py:90 (occ4_via_pallas)", "bm_occ4")
 CHAIN = Kernel("row_chain", "bwamem_tpu_torch/csrc/microbench.cu",
                "tools/microbench_dmawave.py:109 and "
-               "tools/microbench_bigsmem.py:165,179,261")
+               "tools/microbench_bigsmem.py:165,179,261", "bm_row_chain")
 LOOP = Kernel("affine_loop", "bwamem_tpu_torch/csrc/microbench.cu",
-              "tools/microbench_palloop.py:51")
+              "tools/microbench_palloop.py:51", "bm_affine_loop")
 KERNELS = (SMEM, SA, EXTEND, EXTEND2, GLOBAL2, ALIGN2, SMEM1, BUILD, GATHER,
            OCC4, CHAIN, LOOP)
 
@@ -100,7 +121,7 @@ _SIGNATURES = {
                           _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP,
                           _VP, _VP],
     "bm_sa_walk": [_VP, _I64, _I64, _VP, _VP, _I, _I64, _VP, _I, _I, _VP,
-                   _VP, _VP],
+                   _I, _VP, _VP],
     "bm_extend_lr": [_I, _I, _I] + [_VP] * 9 + [_I] * 8 + [_VP] * 14,
     "bm_extend2": [_I, _I, _I] + [_VP] * 5 + [_I] * 4 + [_VP] * 2 + [_I]
                   + [_VP] * 8,
@@ -108,8 +129,8 @@ _SIGNATURES = {
     "bm_align2": [_I, _I, _I, _I] + [_VP] * 6 + [_I] * 5 + [_VP] * 7,
     "bm_smem_iter_step": [_VP, _I64, _I64, _VP, _VP, _I] + [_VP] * 6
                          + [_I, _I, _I, _VP, _VP, _VP, _VP],
-    "bm_build_rows": [_VP, _I, _VP, _I64] + [_VP] * 7 + [_I, _I, _I]
-                     + [_VP] * 5,
+    "bm_build_rows": [_VP, _I, _I, _VP, _I64, _I64] + [_VP] * 7
+                     + [_I, _I, _I] + [_VP] * 5,
     "bm_gather_rows": [_VP, _I64, _I, _VP, _I64, _I, _VP, _VP],
     "bm_occ4": [_VP, _I64, _I64, _VP, _I64, _VP, _VP],
     "bm_row_chain": [_VP, _I64, _I, _VP, _I64, _I, _I, _I, _VP, _VP],
@@ -194,10 +215,44 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _raw_stream(device_index: int) -> int:
+    """The current stream's handle on card device_index as an int, read
+    without building a torch.cuda.Stream."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
-def check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+def card_of(t: torch.Tensor, what: str) -> int:
+    """The index of the card that t lies on; ValueError for a CPU
+    tensor."""
+    idx = t.get_device()
+    if idx < 0:
+        raise ValueError(f"{what} expects CUDA tensors, got one on the CPU")
+    return idx
+
+
+def on_card(t: torch.Tensor, dtype: torch.dtype, idx: int) -> torch.Tensor:
+    """t as a contiguous dtype tensor on card idx, converted only where it
+    is not one already (a bool tensor is taken as its uint8 bytes)."""
+    if dtype is torch.uint8 and t.dtype is torch.bool:
+        t = t.view(torch.uint8)
+    if t.dtype is dtype and t.get_device() == idx and t.is_contiguous():
+        return t
+    return t.to(device=torch.device("cuda", idx), dtype=dtype).contiguous()
+
+
+def on_card_all(idx: int, *pairs) -> list:
+    """on_card of each (tensor, dtype) pair."""
+    return [on_card(t, dt, idx) for t, dt in pairs]
+
+
+def check_host_lengths(what: str, *checks) -> None:
+    """ValueError where a length held on the host exceeds its bucket:
+    checks are (name, lengths, bucket), lengths a tensor or array.
+    Lengths on the card are not read (that would synchronise); the
+    kernel bounds its reads by the bucket."""
+    for name, t, cap in checks:
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            continue
+        if len(t) and int(t.max()) > cap:
+            raise ValueError(f"{what}: a {name} exceeds its bucket {cap}")
+

@@ -1,12 +1,14 @@
-"""The host emulation of the extension, SMEM, global-alignment and
-local-SW kernels.
+"""The host emulation of the extension, SMEM, global-alignment, local-SW
+and row-builder kernels.
 
 ``csrc/extend.cu``, ``csrc/smem.cu``, ``csrc/global.cu`` and
 ``csrc/align.cu`` are written against a team of lanes
 (``csrc/team.cuh``); built by g++ instead of nvcc, each runs a thread
 group's lanes as arrays in one CPU thread, with the shuffles and ballots
-as loops.  This module builds them (one shared library per source under
-``bwamem_tpu_torch/_build/host``, keyed by a hash of the sources) and
+as loops.  ``csrc/extbuild.cu`` is plain per-thread code: its host entry
+runs the kernel's threads in turn.  This module builds them (one shared
+library per source under ``bwamem_tpu_torch/_build/host``, keyed by a
+hash of the sources) and
 calls their ``*_host`` entries on CPU arrays: the kernels' own algorithm
 (the warp per seed or alignment, the group per read) on the CPU.  The
 tests hold it against the plain versions; ``chip_smoke.py`` takes from
@@ -51,6 +53,9 @@ _SIGNATURES = {
     "align.cu": {
         "bm_align2_host": [_I, _I, _I, _I] + [_VP] * 6 + [_I] * 5
                           + [_VP] * 6},
+    "extbuild.cu": {
+        "bm_build_rows_host": [_VP, _I, _I, _VP, _I64, _I64] + [_VP] * 7
+                              + [_I, _I, _I] + [_VP] * 4},
 }
 _libs = {}
 _lock = threading.Lock()
@@ -211,6 +216,25 @@ def align2(query, target, qlen, tlen, mat, o_del, e_del, o_ins, e_ins,
     _check(rc, "align2")
     T = torch.from_numpy
     return T(gmax), T(te), T(qe), T(sat).bool(), T(row_max), T(last)
+
+
+def build_rows(reads_q, pac, l_pac: int, rid, qb0, slen, rb0, rmax0, rmax1,
+               lquery, LQ: int, LT: int):
+    """bm_build_rows' threads on the host, one after another; the
+    arguments and outputs of ops/extbuild.py build_rows_plain (lq, lt,
+    rq, rt)."""
+    i32, i64 = np.int32, np.int64
+    reads, pac = _np(reads_q, np.int8), _np(pac, np.uint8)
+    lane = [_np(a, dt) for a, dt in ((rid, i32), (qb0, i32), (slen, i32),
+                                     (rb0, i64), (rmax0, i64), (rmax1, i64),
+                                     (lquery, i32))]
+    B = len(lane[0])
+    outs = [np.zeros((B, w // 2), np.int8) for w in (LQ, LT, LQ, LT)]
+    rc = _library("extbuild.cu").bm_build_rows_host(
+        reads.ctypes.data, reads.shape[0], reads.shape[1], pac.ctypes.data,
+        len(pac), l_pac, *_ptrs(lane), LQ, LT, B, *_ptrs(outs))
+    _check(rc, "build_rows")
+    return tuple(torch.from_numpy(o) for o in outs)
 
 
 def _fm_args(dfm):

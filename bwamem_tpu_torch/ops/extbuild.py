@@ -83,9 +83,30 @@ def build_rows_plain(reads_q, pac, l_pac: int, rid, qb0, slen, rb0,
     return tuple(_pack_rows(a) for a in (lq, lt, rq, rt))
 
 
+def check_host_windows(n_reads: int, W: int, l_pac: int, rid, qb0, slen,
+                       rb0, rmax0, rmax1, lquery) -> None:
+    """ValueError where a lane's read or reference window lies out of
+    range, when the caller holds the lanes on the host (none of them on
+    the card: reading those would synchronise)."""
+    lanes = (rid, qb0, slen, lquery, rb0, rmax0, rmax1)
+    if any(isinstance(t, torch.Tensor) and t.is_cuda for t in lanes):
+        return
+    rid, qb0, slen, lquery, rb0, rmax0, rmax1 = (
+        torch.as_tensor(t).to(torch.int64) for t in lanes)
+    if bool(((rid < 0) | (rid >= n_reads) | (qb0 < 0) | (slen < 0)
+             | (qb0 + slen > lquery) | (lquery > W) | (rmax0 < 0)
+             | (rmax1 > 2 * l_pac)
+             | ((rmax0 < l_pac) & (rmax1 > l_pac))).any()):
+        raise ValueError("build_rows: a lane's read or reference window "
+                         "exceeds its bucket")
+
+
 def build_rows_cuda(reads_q, pac, l_pac: int, rid, qb0, slen, rb0, rmax0,
                     rmax1, lquery, LQ: int, LT: int):
-    """Launch the row builder (csrc/extbuild.cu bm_build_rows)."""
+    """Launch the row builder (csrc/extbuild.cu bm_build_rows): a thread
+    per 16 output bytes.  The lanes' windows are checked where the caller
+    holds them on the host; on the card the kernel clamps each position
+    into the read's row and the pac instead."""
     if LQ % 2 or LT % 2 or LQ <= 0 or LT <= 0:
         raise ValueError(f"LQ and LT must be even and positive, got "
                          f"{LQ}, {LT}")
@@ -93,39 +114,32 @@ def build_rows_cuda(reads_q, pac, l_pac: int, rid, qb0, slen, rb0, rmax0,
         raise ValueError("reads_q must be int8 [n_reads, width]")
     if pac.dtype != torch.uint8 or pac.dim() != 1:
         raise ValueError("pac must be uint8 [n_bytes]")
-    dev = reads_q.device
-    if pac.device != dev:
-        raise ValueError(f"reads on {dev}, pac on {pac.device}")
-    i32, i64 = torch.int32, torch.int64
-    lane = [t.to(device=dev, dtype=dt).contiguous() for t, dt in (
-        (rid, i32), (qb0, i32), (slen, i32), (rb0, i64), (rmax0, i64),
-        (rmax1, i64), (lquery, i32))]
-    B = lane[0].shape[0]
-    if any(t.shape != (B,) for t in lane):
-        raise ValueError(f"the per-seed arrays must have shape ({B},)")
-    outs = [torch.empty(B, w // 2, dtype=torch.int8, device=dev)
-            for w in (LQ, LT, LQ, LT)]
-    if B == 0:
-        return tuple(outs)
-    rid, qb0, slen, rb0, rmax0, rmax1, lquery = lane
-    # every base the lanes ask for lies inside the reads and the pac
     n_reads, W = reads_q.shape
     if 4 * pac.shape[0] < l_pac:
         raise ValueError(f"pac holds fewer than l_pac={l_pac} bases")
-    if bool(((rid < 0) | (rid >= n_reads) | (qb0 < 0) | (slen < 0)
-             | (qb0 + slen > lquery) | (lquery > W) | (rmax0 < 0)
-             | (rmax1 > 2 * l_pac)
-             | ((rmax0 < l_pac) & (rmax1 > l_pac))).any()):
-        raise ValueError("a lane's read or reference window is out of "
-                         "range")
-    reads_q, pac = reads_q.contiguous(), pac.contiguous()
-    lib = _kernels.library()
-    _kernels.BUILD.count(f"LQ{LQ}")
-    rc = lib.bm_build_rows(
-        reads_q.data_ptr(), W, pac.data_ptr(), l_pac,
-        *(t.data_ptr() for t in lane), LQ, LT, B,
-        *(o.data_ptr() for o in outs), _kernels.stream_of(outs[0]))
-    _kernels.check(rc, "build_rows")
+    windows = (rid, qb0, slen, rb0, rmax0, rmax1, lquery)
+    check_host_windows(n_reads, W, l_pac, *windows)
+    idx = _kernels.card_of(reads_q, "build_rows")
+    if pac.get_device() != idx:
+        raise ValueError(f"reads on {reads_q.device}, pac on {pac.device}")
+    i32, i64 = torch.int32, torch.int64
+    lane = _kernels.on_card_all(idx, *zip(
+        windows, (i32, i32, i32, i64, i64, i64, i32)))
+    B = lane[0].shape[0]
+    if any(t.shape != (B,) for t in lane):
+        raise ValueError(f"the per-seed arrays must have shape ({B},)")
+    if B and not (n_reads and W):
+        raise ValueError("build_rows: no reads to cut the query rows from")
+    dev = reads_q.device
+    outs = [torch.empty(B, w // 2, dtype=torch.int8, device=dev)
+            for w in (LQ, LT, LQ, LT)]
+    if B:
+        reads_q = _kernels.on_card(reads_q, torch.int8, idx)
+        pac = _kernels.on_card(pac, torch.uint8, idx)
+        _kernels.BUILD.launch(
+            idx, reads_q.data_ptr(), n_reads, W, pac.data_ptr(),
+            pac.shape[0], l_pac, *(t.data_ptr() for t in lane), LQ, LT, B,
+            *(o.data_ptr() for o in outs), bucket=f"LQ{LQ}")
     return tuple(outs)
 
 

@@ -64,6 +64,7 @@ class DeviceFmIndex(nn.Module):
         self.primary_int = int(primary)
         self.seq_len_int = int(seq_len)
         self.L2_host = L2.numpy().astype(np.int64)
+        self.L2_host_ptr = self.L2_host.ctypes.data   # a kernel argument
 
     @property
     def cdt(self) -> torch.dtype:
@@ -231,29 +232,28 @@ def sa_lookup_batched(dfm: DeviceFmIndex, k: torch.Tensor,
 
 
 def sa_walk_cuda(dfm: DeviceFmIndex, k: torch.Tensor, max_steps: int):
-    """Launch the SA-walk kernel (csrc/sa.cu) on CUDA keys."""
+    """Launch the SA-walk kernel (csrc/sa.cu) on CUDA keys; it writes the
+    values in the coordinate dtype and the flags as bool."""
     intv = dfm.sa_intv
     if intv & (intv - 1):
         raise ValueError(f"sa_intv must be a power of two, got {intv}; "
                          "such indexes take the host walk")
-    if dfm.device != k.device:
+    idx = _kernels.card_of(k, "sa_walk")
+    if dfm.blocks.get_device() != idx:
         raise ValueError(f"keys on {k.device}, index on {dfm.device}")
-    keys = k.to(torch.int64).contiguous()
+    keys = _kernels.on_card(k, torch.int64, idx)
     n = keys.numel()
-    vals = torch.empty(n, dtype=torch.int64, device=k.device)
-    over = torch.empty(n, dtype=torch.uint8, device=k.device)
-    if n == 0:
-        return vals.to(dfm.cdt), over.bool()
-    lib = _kernels.library()
-    _kernels.SA.count()
-    rc = lib.bm_sa_walk(
-        dfm.blocks.data_ptr(), dfm.primary_int, dfm.seq_len_int,
-        dfm.L2_host.ctypes.data, dfm.sa.data_ptr(),
-        1 if dfm.sa.dtype == torch.int64 else 0, intv, keys.data_ptr(), n,
-        int(max_steps), vals.data_ptr(), over.data_ptr(),
-        _kernels.stream_of(keys))
-    _kernels.check(rc, "sa_walk")
-    return vals.to(dfm.cdt), over.bool()
+    cdt = dfm.cdt
+    vals = torch.empty(n, dtype=cdt, device=k.device)
+    over = torch.empty(n, dtype=torch.bool, device=k.device)
+    if n:
+        _kernels.SA.launch(
+            idx, dfm.blocks.data_ptr(), dfm.primary_int, dfm.seq_len_int,
+            dfm.L2_host_ptr, dfm.sa.data_ptr(),
+            int(dfm.sa.dtype == torch.int64), intv, keys.data_ptr(), n,
+            int(max_steps), vals.data_ptr(), int(cdt == torch.int64),
+            over.data_ptr())
+    return vals, over
 
 
 def sa_lookup(dfm: DeviceFmIndex, k: torch.Tensor, max_steps: int = 128):

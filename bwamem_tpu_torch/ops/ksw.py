@@ -250,35 +250,32 @@ def extend_lr_cuda(lq, lt, llq, llt, rq, rt, rlq, rlt, mat, o_del, e_del,
         raise ValueError(f"the extension kernel is built for LQ in "
                          f"{_EXT_LQ}, got {LQ}")
     B = lq.shape[0]
-    dev = lq.device
     for name, t, width in (("lq", lq, LQ), ("rq", rq, LQ),
                            ("lt", lt, LT), ("rt", rt, LT)):
         if t.shape != (B, width // 2) or t.dtype != torch.int8:
             raise ValueError(f"{name} must be packed int8 "
                              f"({B}, {width // 2})")
-    if bool(((llq > LQ) | (rlq > LQ) | (llt > LT) | (rlt > LT)).any()):
-        raise ValueError(f"a query exceeds LQ={LQ} or a target LT={LT}")
+    _kernels.check_host_lengths("extend_lr", ("query", llq, LQ),
+                                ("query", rlq, LQ), ("target", llt, LT),
+                                ("target", rlt, LT))
+    idx = _kernels.card_of(lq, "extend_lr")
+    dev = lq.device
     i32, i64 = torch.int32, torch.int64
-    ins = [t.to(device=dev, dtype=dt).contiguous() for t, dt in (
-        (lq, torch.int8), (lt, torch.int8), (llq, i32), (llt, i32),
-        (rq, torch.int8), (rt, torch.int8), (rlq, i32), (rlt, i32),
-        (mat.reshape(-1), torch.int8))]
     # rmax0 cancels out of the right end (re = rmax0 + (s_rbeg + s_len -
     # rmax0) + tle), so the kernel does not take it
-    lane = [t.to(device=dev, dtype=dt).contiguous() for t, dt in (
-        (sc_seed, i32), (s_qbeg, i32), (s_rbeg, i64), (l_query, i32),
-        (s_len, i32))]
+    ins = _kernels.on_card_all(
+        idx, (lq, torch.int8), (lt, torch.int8), (llq, i32), (llt, i32),
+        (rq, torch.int8), (rt, torch.int8), (rlq, i32), (rlt, i32),
+        (mat.reshape(-1), torch.int8), (sc_seed, i32), (s_qbeg, i32),
+        (s_rbeg, i64), (l_query, i32), (s_len, i32))
     outs = [torch.empty(B, dtype=dt, device=dev)
             for dt in (i32, i32, i32, i64, i32, i64, i32, i32)]
-    if B == 0:
-        return tuple(outs)
-    lib = _kernels.library()
-    _kernels.EXTEND.count(f"LQ{LQ}")
-    rc = lib.bm_extend_lr(
-        LQ, LT, B, *(t.data_ptr() for t in ins), o_del, e_del, o_ins,
-        e_ins, w0, pc5, pc3, zdrop, *(t.data_ptr() for t in lane),
-        *(t.data_ptr() for t in outs), _kernels.stream_of(outs[0]))
-    _kernels.check(rc, "extend_lr")
+    if B:
+        _kernels.EXTEND.launch(
+            idx, LQ, LT, B, *(t.data_ptr() for t in ins[:9]), o_del, e_del,
+            o_ins, e_ins, w0, pc5, pc3, zdrop,
+            *(t.data_ptr() for t in ins[9:]),
+            *(t.data_ptr() for t in outs), bucket=f"LQ{LQ}")
     return tuple(outs)
 
 
@@ -309,19 +306,17 @@ def extend2_plain(query, target, qlen, tlen, mat, o_del: int, e_del: int,
     return tuple(t.to(torch.int32) for t in out)
 
 
-def _check_rows(LQ: int, LT: int, q, t, qlen, tlen, what: str) -> None:
+def _check_rows(LQ: int, LT: int, q, t, qlen, tlen, what: str) -> int:
+    """The packed rows' shapes and dtypes, and the lengths where the
+    caller holds them on the host.  Returns the card's index."""
     B = q.shape[0]
     for name, x, width in (("query", q, LQ), ("target", t, LT)):
         if x.shape != (B, width // 2) or x.dtype != torch.int8:
             raise ValueError(f"{what}: {name} must be packed int8 "
                              f"({B}, {width // 2})")
-    if bool(((qlen > LQ) | (tlen > LT)).any()):
-        raise ValueError(f"{what}: a query exceeds LQ={LQ} or a target "
-                         f"LT={LT}")
-
-
-def _lane_args(dev, *pairs):
-    return [t.to(device=dev, dtype=dt).contiguous() for t, dt in pairs]
+    _kernels.check_host_lengths(what, ("query", qlen, LQ),
+                                ("target", tlen, LT))
+    return _kernels.card_of(q, what)
 
 
 def extend2_cuda(query, target, qlen, tlen, mat, o_del: int, e_del: int,
@@ -331,26 +326,21 @@ def extend2_cuda(query, target, qlen, tlen, mat, o_del: int, e_del: int,
     if LQ not in _EXT_LQ:
         raise ValueError(f"the extension kernel is built for LQ in "
                          f"{_EXT_LQ}, got {LQ}")
-    _check_rows(LQ, LT, query, target, qlen, tlen, "extend2")
+    idx = _check_rows(LQ, LT, query, target, qlen, tlen, "extend2")
     B = query.shape[0]
-    dev = query.device
     i32 = torch.int32
-    q, t, ql, tl, m, wv, eb, hv = _lane_args(
-        dev, (query, torch.int8), (target, torch.int8), (qlen, i32),
+    q, t, ql, tl, m, wv, eb, hv = _kernels.on_card_all(
+        idx, (query, torch.int8), (target, torch.int8), (qlen, i32),
         (tlen, i32), (mat.reshape(-1), torch.int8), (w, i32),
         (end_bonus, i32), (h0, i32))
-    outs = [torch.empty(B, dtype=i32, device=dev) for _ in range(6)]
-    if B == 0:
-        return tuple(outs)
-    lib = _kernels.library()
-    _kernels.EXTEND2.count(f"LQ{LQ}")
-    rc = lib.bm_extend2(LQ, LT, B, q.data_ptr(), t.data_ptr(),
-                        ql.data_ptr(), tl.data_ptr(), m.data_ptr(), o_del,
-                        e_del, o_ins, e_ins, wv.data_ptr(), eb.data_ptr(),
-                        zdrop, hv.data_ptr(),
-                        *(o.data_ptr() for o in outs),
-                        _kernels.stream_of(outs[0]))
-    _kernels.check(rc, "extend2")
+    outs = [torch.empty(B, dtype=i32, device=query.device)
+            for _ in range(6)]
+    if B:
+        _kernels.EXTEND2.launch(
+            idx, LQ, LT, B, q.data_ptr(), t.data_ptr(), ql.data_ptr(),
+            tl.data_ptr(), m.data_ptr(), o_del, e_del, o_ins, e_ins,
+            wv.data_ptr(), eb.data_ptr(), zdrop, hv.data_ptr(),
+            *(o.data_ptr() for o in outs), bucket=f"LQ{LQ}")
     return tuple(outs)
 
 
@@ -474,27 +464,22 @@ def global_cuda(query, target, qlen, tlen, mat, o_del: int, e_del: int,
     if LQ not in _GLO_LQ:
         raise ValueError(f"the global kernel is built for LQ in {_GLO_LQ}, "
                          f"got {LQ}")
-    _check_rows(LQ, LT, query, target, qlen, tlen, "global2")
+    idx = _check_rows(LQ, LT, query, target, qlen, tlen, "global2")
     B = query.shape[0]
     dev = query.device
     i32 = torch.int32
-    q, t, ql, tl, wv, m = _lane_args(
-        dev, (query, torch.int8), (target, torch.int8), (qlen, i32),
+    q, t, ql, tl, wv, m = _kernels.on_card_all(
+        idx, (query, torch.int8), (target, torch.int8), (qlen, i32),
         (tlen, i32), (w, i32), (mat.reshape(-1), torch.int8))
     score, n_ops, rem_i, rem_k = (torch.empty(B, dtype=i32, device=dev)
                                   for _ in range(4))
     ops = torch.empty(B, LT + LQ, dtype=torch.uint8, device=dev)
-    if B == 0:
-        return score, ops, n_ops, rem_i, rem_k
-    lib = _kernels.library()
-    _kernels.GLOBAL2.count()
-    rc = lib.bm_global2(LQ, LT, B, q.data_ptr(), t.data_ptr(),
-                        ql.data_ptr(), tl.data_ptr(), wv.data_ptr(),
-                        m.data_ptr(), o_del, e_del, o_ins, e_ins,
-                        score.data_ptr(), ops.data_ptr(),
-                        n_ops.data_ptr(), rem_i.data_ptr(), rem_k.data_ptr(),
-                        _kernels.stream_of(score))
-    _kernels.check(rc, "global2")
+    if B:
+        _kernels.GLOBAL2.launch(
+            idx, LQ, LT, B, q.data_ptr(), t.data_ptr(), ql.data_ptr(),
+            tl.data_ptr(), wv.data_ptr(), m.data_ptr(), o_del, e_del, o_ins,
+            e_ins, score.data_ptr(), ops.data_ptr(), n_ops.data_ptr(),
+            rem_i.data_ptr(), rem_k.data_ptr())
     return score, ops, n_ops, rem_i, rem_k
 
 

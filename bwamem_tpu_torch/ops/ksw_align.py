@@ -103,7 +103,7 @@ def align_cuda(query, target, qlen, tlen, mat, o_del: int, e_del: int,
                o_ins: int, e_ins: int, endsc, shift: int, size: int,
                LQV: int, LT: int):
     """Launch the local-SW kernel (csrc/align.cu bm_align2): one warp per
-    lane."""
+    lane; it writes the saturation flags as bool."""
     if LQV not in _ALN_LQV or size not in (1, 2):
         raise ValueError(f"the local-SW kernel is built for LQV in "
                          f"{_ALN_LQV} and size 1 or 2, got {LQV}, {size}")
@@ -111,43 +111,40 @@ def align_cuda(query, target, qlen, tlen, mat, o_del: int, e_del: int,
     for name, x, width in (("query", query, LQV), ("target", target, LT)):
         if x.shape != (B, width) or x.dtype != torch.int8:
             raise ValueError(f"align2: {name} must be int8 ({B}, {width})")
-    if bool(((qlen > LQV) | (tlen > LT)).any()):
-        raise ValueError(f"align2: a query exceeds LQV={LQV} or a target "
-                         f"LT={LT}")
+    _kernels.check_host_lengths("align2", ("query", qlen, LQV),
+                                ("target", tlen, LT))
+    idx = _kernels.card_of(query, "align2")
     dev = query.device
     i32 = torch.int32
-    q, t, ql, tl, es, m = (x.to(device=dev, dtype=dt).contiguous()
-                           for x, dt in ((query, torch.int8),
-                                         (target, torch.int8), (qlen, i32),
-                                         (tlen, i32), (endsc, i32),
-                                         (mat.reshape(-1), torch.int8)))
+    q, t, ql, tl, es, m = _kernels.on_card_all(
+        idx, (query, torch.int8), (target, torch.int8), (qlen, i32),
+        (tlen, i32), (endsc, i32), (mat.reshape(-1), torch.int8))
     gmax, te, qe, last = (torch.empty(B, dtype=i32, device=dev)
                           for _ in range(4))
-    sat = torch.empty(B, dtype=torch.uint8, device=dev)
+    sat = torch.empty(B, dtype=torch.bool, device=dev)
     row_max = torch.empty(B, LT, dtype=i32, device=dev)
     if B:
-        lib = _kernels.library()
-        _kernels.ALIGN2.count()
-        rc = lib.bm_align2(size, LQV, LT, B, q.data_ptr(), t.data_ptr(),
-                           ql.data_ptr(), tl.data_ptr(), es.data_ptr(),
-                           m.data_ptr(), o_del, e_del, o_ins, e_ins, shift,
-                           gmax.data_ptr(), te.data_ptr(), qe.data_ptr(),
-                           sat.data_ptr(), row_max.data_ptr(),
-                           last.data_ptr(), _kernels.stream_of(gmax))
-        _kernels.check(rc, "align2")
-    return gmax, te, qe, sat.bool(), row_max, last
+        _kernels.ALIGN2.launch(
+            idx, size, LQV, LT, B, q.data_ptr(), t.data_ptr(), ql.data_ptr(),
+            tl.data_ptr(), es.data_ptr(), m.data_ptr(), o_del, e_del, o_ins,
+            e_ins, shift, gmax.data_ptr(), te.data_ptr(), qe.data_ptr(),
+            sat.data_ptr(), row_max.data_ptr(), last.data_ptr())
+    return gmax, te, qe, sat, row_max, last
 
 
 def ksw_align_batched(query, target, qlen, tlen, mat, o_del: int,
-                      e_del: int, o_ins: int, e_ins: int, endsc, size: int,
-                      LQV: int, LT: int):
+                      e_del: int, o_ins: int, e_ins: int, endsc, shift: int,
+                      size: int, LQV: int, LT: int):
     """One ksw_u8 (size=1) / ksw_i16 (size=2) pass per lane
     (bwamem_tpu/ops/ksw_align.py ksw_align_batched): int8 bases query
     [B, LQV] / target [B, LT], per-lane qlen, tlen and endsc (0x10000 when
     unused).  Returns (gmax, te, qe, saturated bool, row_max [B, LT],
     last_row), int32 otherwise.  The kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    shift = -int(mat.min()) if size == 1 else 0
+    version for CPU tensors.  shift is the u8 bias, -min(mat), taken from
+    the caller's host copy of the matrix (reading mat would synchronise);
+    the i16 pass (size 2) has none."""
+    if size != 1:
+        shift = 0
     fn = align_cuda if query.is_cuda else align_plain
     return fn(query, target, qlen, tlen, mat, o_del, e_del, o_ins, e_ins,
               endsc, shift, size, LQV, LT)
@@ -168,6 +165,7 @@ def align2_wave(opt, reqs, wave_width: int, mat, lq_cap: int = 128,
     n = len(reqs)
     outs = [None] * n
     max_sc = int(max(opt.mat))
+    shift = -int(min(opt.mat))   # the u8 bias, from the host's matrix
     dev = mat.device
     count = count or (lambda tag, k: None)
     timed = timed or (lambda fn: fn())
@@ -218,7 +216,7 @@ def align2_wave(opt, reqs, wave_width: int, mat, lq_cap: int = 128,
             t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
             out = ksw_align_batched(
                 t(qb), t(tb), t(qlen), t(tlen), mat, opt.o_del, opt.e_del,
-                opt.o_ins, opt.e_ins, t(ends), size=size, LQV=lq_cap,
+                opt.o_ins, opt.e_ins, t(ends), shift, size=size, LQV=lq_cap,
                 LT=lt_cap)
             pend.append((grp, out, mins))
         for grp, out, mins in pend:

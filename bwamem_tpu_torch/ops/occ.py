@@ -69,23 +69,23 @@ def gather_rows_cuda(table: torch.Tensor, ids: torch.Tensor,
                      transpose: bool = False) -> torch.Tensor:
     """Launch bm_gather_rows (csrc/occ.cu) on CUDA ids."""
     _check_table(table)
-    if table.device != ids.device:
+    idx = _kernels.card_of(ids, "gather_rows")
+    if table.get_device() != idx:
         raise ValueError(f"ids on {ids.device}, table on {table.device}")
     if transpose and ids.dim() != 1:
         raise ValueError("the transposed gather takes 1-D ids")
-    table = table.contiguous()
-    flat = ids.to(torch.int64).contiguous().reshape(-1)
+    if not table.is_contiguous():
+        table = table.contiguous()
+    flat = _kernels.on_card(ids, torch.int64, idx)
     n, W = flat.numel(), table.shape[1]
     out = torch.empty((W, n) if transpose else (n, W), dtype=torch.int32,
-                      device=ids.device)
+                      device=idx)
     if n:
-        lib = _kernels.library()
-        _kernels.GATHER.count()
-        _kernels.check(lib.bm_gather_rows(
-            table.data_ptr(), table.shape[0], W, flat.data_ptr(), n,
-            int(transpose), out.data_ptr(), _kernels.stream_of(flat)),
-            "gather_rows")
-    return out if transpose else out.reshape(*ids.shape, W)
+        _kernels.GATHER.launch(idx, table.data_ptr(), table.shape[0], W,
+                               flat.data_ptr(), n, int(transpose),
+                               out.data_ptr())
+    return out if transpose or ids.dim() == 1 \
+        else out.view(*ids.shape, W)
 
 
 def gather_rows(table, ids, transpose: bool = False) -> torch.Tensor:
@@ -106,20 +106,17 @@ def occ4_cuda(blocks: torch.Tensor, primary: int,
     if blocks.shape[1] != 16:
         raise ValueError(f"expected (n_blocks, 16) occ blocks, got "
                          f"{tuple(blocks.shape)}")
-    if blocks.device != k.device:
+    idx = _kernels.card_of(k, "occ4")
+    if blocks.get_device() != idx:
         raise ValueError(f"keys on {k.device}, table on {blocks.device}")
-    blocks = blocks.contiguous()
-    keys = k.to(torch.int64).contiguous().reshape(-1)
-    out = torch.empty((keys.numel(), 4), dtype=torch.int64, device=k.device)
+    blocks = _kernels.on_card(blocks, torch.int32, idx)
+    keys = _kernels.on_card(k, torch.int64, idx)
+    out = torch.empty((*k.shape, 4), dtype=torch.int64, device=k.device)
     if keys.numel():
-        lib = _kernels.library()
-        _kernels.OCC4.count()
-        _kernels.check(lib.bm_occ4(blocks.data_ptr(), blocks.shape[0],
-                                   int(primary), keys.data_ptr(),
-                                   keys.numel(),
-                                   out.data_ptr(), _kernels.stream_of(keys)),
-                       "occ4")
-    return out.reshape(*k.shape, 4)
+        _kernels.OCC4.launch(idx, blocks.data_ptr(), blocks.shape[0],
+                             int(primary), keys.data_ptr(), keys.numel(),
+                             out.data_ptr())
+    return out
 
 
 def occ4(blocks, primary: int, k: torch.Tensor) -> torch.Tensor:
@@ -185,22 +182,20 @@ def row_chain_cuda(table: torch.Tensor, idx0: torch.Tensor, T: int,
                    mode: str = "dep") -> torch.Tensor:
     """Launch bm_row_chain (csrc/microbench.cu) on CUDA row ids."""
     mode = _chain_args(table, idx0, mode)
-    if table.device != idx0.device:
+    idx = _kernels.card_of(idx0, "row_chain")
+    if table.get_device() != idx:
         raise ValueError(f"idx0 on {idx0.device}, table on {table.device}")
-    table = table.contiguous()
+    table = _kernels.on_card(table, torch.int32, idx)
     if table.data_ptr() % 16:
         raise ValueError("the chain kernel reads 16-byte words: the table "
                          "must be 16-byte aligned")
-    idx0 = idx0.to(torch.int32).contiguous()
+    idx0 = _kernels.on_card(idx0, torch.int32, idx)
     K, C = idx0.shape
     out = torch.empty(C, dtype=torch.int32, device=idx0.device)
     if C:
-        lib = _kernels.library()
-        _kernels.CHAIN.count()
-        _kernels.check(lib.bm_row_chain(
-            table.data_ptr(), table.shape[0], table.shape[1],
-            idx0.data_ptr(), C, K, int(T), CHAIN_MODES.index(mode),
-            out.data_ptr(), _kernels.stream_of(idx0)), "row_chain")
+        _kernels.CHAIN.launch(idx, table.data_ptr(), table.shape[0],
+                              table.shape[1], idx0.data_ptr(), C, K, int(T),
+                              CHAIN_MODES.index(mode), out.data_ptr())
     return out
 
 
@@ -229,15 +224,12 @@ def affine_loop_cuda(x: torch.Tensor, iters: int) -> torch.Tensor:
     kernel."""
     if x.dtype != torch.float32:
         raise ValueError(f"expected float32, got {x.dtype}")
-    x = x.contiguous()
+    idx = _kernels.card_of(x, "affine_loop")
+    x = _kernels.on_card(x, torch.float32, idx)
     out = torch.empty_like(x)
     if x.numel():
-        lib = _kernels.library()
-        _kernels.LOOP.count()
-        _kernels.check(lib.bm_affine_loop(x.data_ptr(), x.numel(),
-                                          int(iters), out.data_ptr(),
-                                          _kernels.stream_of(x)),
-                       "affine_loop")
+        _kernels.LOOP.launch(idx, x.data_ptr(), x.numel(), int(iters),
+                             out.data_ptr())
     return out
 
 

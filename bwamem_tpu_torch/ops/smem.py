@@ -301,8 +301,11 @@ def superstep_plain(dfm: DeviceFmIndex, q_pk, qlen, min_intv, active,
 MAX_L = 512    # the longest query bucket the kernels take
 
 
-def _check_queries(dfm: DeviceFmIndex, q_pk, qlen, L: int, M: int) -> None:
-    """The SMEM kernels' shape, dtype and device checks."""
+def _check_queries(dfm: DeviceFmIndex, q_pk, qlen, L: int,
+                   M: int) -> int:
+    """The SMEM kernels' shape, dtype and device checks, and the query
+    lengths where the caller holds them on the host.  Returns the card's
+    index."""
     if L % 2 or not 0 < L <= MAX_L:
         raise ValueError(f"L must be even and <= {MAX_L}, got {L}")
     if not 1 <= M <= 32:
@@ -310,13 +313,23 @@ def _check_queries(dfm: DeviceFmIndex, q_pk, qlen, L: int, M: int) -> None:
     B = q_pk.shape[0]
     if q_pk.shape != (B, L // 2) or q_pk.dtype != torch.int8:
         raise ValueError(f"q_pk must be int8 ({B}, {L // 2})")
-    if dfm.device != q_pk.device:
+    _kernels.check_host_lengths("smem", ("query", qlen, L))
+    idx = _kernels.card_of(q_pk, "smem")
+    if dfm.blocks.get_device() != idx:
         raise ValueError(f"queries on {q_pk.device}, index on {dfm.device}")
     if dfm.blocks.data_ptr() % 16:
         raise ValueError("the occ table must be 16-byte aligned (the "
                          "kernels load a row in 16-byte pieces)")
-    if B and int(qlen.max()) > L:
-        raise ValueError(f"a query is longer than L={L}")
+    return idx
+
+
+def _lane_args(idx: int, B: int, *pairs):
+    """The per-lane arrays as contiguous [B] tensors of their kernel
+    dtypes on card idx."""
+    out = _kernels.on_card_all(idx, *pairs)
+    if any(t.shape != (B,) for t in out):
+        raise ValueError(f"the per-lane arrays must have shape ({B},)")
+    return out
 
 
 def _step_pass(dfm, q, qlen, x, min_intv, active, M: int, M_OUT: int):
@@ -376,17 +389,16 @@ def smem_iter_step_cuda(dfm: DeviceFmIndex, q_pk, qlen, x, min_intv,
                         M_OUT: int):
     """Launch the iterator-step kernel (csrc/smem.cu bm_smem_iter_step).
     Same outputs as smem_iter_step_plain."""
-    _check_queries(dfm, q_pk, qlen, L, M)
+    idx = _check_queries(dfm, q_pk, qlen, L, M)
     if not 1 <= M_OUT <= M:
         raise ValueError(f"M_OUT must be in [1, M={M}], got {M_OUT}")
     B = q_pk.shape[0]
     dev = q_pk.device
-    i32, i64, u8 = torch.int32, torch.int64, torch.uint8
-    args = [t.to(device=dev, dtype=dt).contiguous() for t, dt in (
-        (q_pk, torch.int8), (qlen, i32), (x, i32), (min_intv, i64),
-        (active, u8), (split_len, i32), (split_width, i32))]
-    if any(a.shape != (B,) for a in args[1:]):
-        raise ValueError(f"the per-lane arrays must have shape ({B},)")
+    i32, i64 = torch.int32, torch.int64
+    q = _kernels.on_card(q_pk, torch.int8, idx)
+    args = _lane_args(idx, B, (qlen, i32), (x, i32), (min_intv, i64),
+                      (active, torch.uint8), (split_len, i32),
+                      (split_width, i32))
 
     def pass_out():
         return [torch.empty(B, dtype=i32, device=dev) for _ in range(2)] \
@@ -394,21 +406,18 @@ def smem_iter_step_cuda(dfm: DeviceFmIndex, q_pk, qlen, x, min_intv,
                for _ in range(3)] \
             + [torch.empty(B, M_OUT, dtype=i32, device=dev)
                for _ in range(2)] \
-            + [torch.empty(B, dtype=u8, device=dev)]
+            + [torch.empty(B, dtype=torch.bool, device=dev)]
     o1, o2 = pass_out(), pass_out()
-    need2 = torch.empty(B, dtype=u8, device=dev)
+    need2 = torch.empty(B, dtype=torch.bool, device=dev)
     if B:
         p1, p2 = ((ctypes.c_void_p * 8)(*(t.data_ptr() for t in o))
                   for o in (o1, o2))
-        lib = _kernels.library()
-        _kernels.SMEM1.count(f"L{L}")
-        rc = lib.bm_smem_iter_step(
-            dfm.blocks.data_ptr(), dfm.primary_int, dfm.seq_len_int,
-            dfm.L2_host.ctypes.data, args[0].data_ptr(), L,
-            *(a.data_ptr() for a in args[1:]), M, M_OUT, B, p1,
-            need2.data_ptr(), p2, _kernels.stream_of(need2))
-        _kernels.check(rc, "smem_iter_step")
-    return (*o1[:7], o1[7].bool(), need2.bool(), *o2[:7], o2[7].bool())
+        _kernels.SMEM1.launch(
+            idx, dfm.blocks.data_ptr(), dfm.primary_int, dfm.seq_len_int,
+            dfm.L2_host_ptr, q.data_ptr(), L,
+            *(a.data_ptr() for a in args), M, M_OUT, B, p1,
+            need2.data_ptr(), p2, bucket=f"L{L}")
+    return (*o1, need2, *o2)
 
 
 def smem_iter_step(dfm, q_pk, qlen, x, min_intv, active, split_len,
@@ -425,33 +434,27 @@ def superstep_cuda(dfm: DeviceFmIndex, q_pk, qlen, min_intv, active,
     """Launch the superstep kernel (csrc/smem.cu).  Same outputs as
     superstep_plain on the slots the consumer reads: o0/os/oqb/oqe slots
     [0, n_out) of lanes that did not overflow, n_out and over."""
-    _check_queries(dfm, q_pk, qlen, L, M)
+    idx = _check_queries(dfm, q_pk, qlen, L, M)
     B = q_pk.shape[0]
     dev = q_pk.device
-    args = [t.to(device=dev, dtype=dt).contiguous() for t, dt in (
-        (q_pk, torch.int8), (qlen, torch.int32), (min_intv, torch.int64),
-        (active, torch.uint8), (split_len, torch.int32),
-        (split_width, torch.int32))]
-    if any(a.shape != (B,) for a in args[1:]):
-        raise ValueError(f"the per-lane arrays must have shape ({B},)")
+    q = _kernels.on_card(q_pk, torch.int8, idx)
+    args = _lane_args(idx, B, (qlen, torch.int32), (min_intv, torch.int64),
+                      (active, torch.uint8), (split_len, torch.int32),
+                      (split_width, torch.int32))
     o0 = torch.empty(B, OUT_CAP, dtype=torch.int64, device=dev)
     os_ = torch.empty_like(o0)
     oqb = torch.empty(B, OUT_CAP, dtype=torch.int32, device=dev)
     oqe = torch.empty_like(oqb)
     n_out = torch.empty(B, dtype=torch.int32, device=dev)
-    over = torch.empty(B, dtype=torch.uint8, device=dev)
-    if B == 0:
-        return o0, os_, oqb, oqe, n_out, over.bool()
-    lib = _kernels.library()
-    _kernels.SMEM.count(f"L{L}")
-    rc = lib.bm_smem_superstep(
-        dfm.blocks.data_ptr(), dfm.primary_int, dfm.seq_len_int,
-        dfm.L2_host.ctypes.data, args[0].data_ptr(), L,
-        *(a.data_ptr() for a in args[1:]), M, OUT_CAP, B, o0.data_ptr(),
-        os_.data_ptr(), oqb.data_ptr(), oqe.data_ptr(), n_out.data_ptr(),
-        over.data_ptr(), _kernels.stream_of(o0))
-    _kernels.check(rc, "smem_superstep")
-    return o0, os_, oqb, oqe, n_out, over.bool()
+    over = torch.empty(B, dtype=torch.bool, device=dev)
+    if B:
+        _kernels.SMEM.launch(
+            idx, dfm.blocks.data_ptr(), dfm.primary_int, dfm.seq_len_int,
+            dfm.L2_host_ptr, q.data_ptr(), L,
+            *(a.data_ptr() for a in args), M, OUT_CAP, B, o0.data_ptr(),
+            os_.data_ptr(), oqb.data_ptr(), oqe.data_ptr(), n_out.data_ptr(),
+            over.data_ptr(), bucket=f"L{L}")
+    return o0, os_, oqb, oqe, n_out, over
 
 
 def superstep(dfm, q_pk, qlen, min_intv, active, split_len, split_width,

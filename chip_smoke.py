@@ -36,7 +36,18 @@ Phases, each printing one line with its own numbers and seconds:
    (ops/emulate.py), whose outputs must equal the kernel's; align2's, at
    both passes, also the bound over the cells it ran (the virtual query
    by the rows computed, from its own outputs); global2's and align2's
-   the device memory their wrappers hold beyond the outputs (scratch);
+   the device memory their wrappers hold beyond the outputs (scratch).
+   Every record carries the kernel's own device time by torch.profiler
+   (profiler_ms; where the profiler recorded no launch of it, device_ms:
+   the wrapper's calls captured in a CUDA graph and replayed) beside the
+   CUDA-event ms around its wrapper, and the difference, the host cost
+   per call (host_ms); the SA walk's also its
+   chain floor (the longest walk among the launch's live keys, in steps,
+   times one dependent occ-row step of the chain kernel on the same
+   table); and gather_rows at 16,384 ids of the index's occ table
+   against index_select, its library call, by CUDA events and device
+   time, with microbench.launch_cost's step-by-step host cost of the
+   call;
 3. goldens: ``mem`` SE, SE -a -M and PE on tests/data through
    ``bwamem_tpu_torch.cli --device cuda``, byte-identical to the goldens
    (without @PG), then the -v 4 SE, -v 4 PE and -v 5 traces of the
@@ -188,24 +199,123 @@ def cuda_ms(fn, reps, warm=True):
     return a.elapsed_time(b) / reps, out
 
 
-def profiler_ms(fn, name, reps=3):
+def profiler_ms(fn, name, reps=3, tries=4):
     """The device time per launch of the CUDA kernels whose name holds
-    `name`, by torch.profiler: the kernel alone, without its wrapper's
-    host work and checks, which CUDA events around the call include.
-    Divided by the launches the profiler recorded, which can be fewer
-    than were made.  None where it recorded no such kernel."""
+    `name` (every kernel when None), by torch.profiler: the kernel alone,
+    without its wrapper's host work, which CUDA events around the call
+    include.  Divided by the launches the profiler recorded, which can be
+    fewer than were made; a session that recorded none is run again, up
+    to `tries` times.  None where none recorded such a kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages() if name in e.key]
-    n = sum(e.count for e in seen)
-    us = sum(getattr(e, "self_device_time_total", 0) for e in seen)
-    return us / n / 1e3 if n else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if (name is None or name in e.key)
+                and getattr(e, "self_device_time_total", 0) > 0]
+        n = sum(e.count for e in seen)
+        if n:
+            return sum(e.self_device_time_total for e in seen) / n / 1e3
+    return None
+
+
+def own_ms(fn, name):
+    """(ms, key): the device time per call of fn's kernel, keyed by how
+    it was read: torch.profiler's (profiler_ms), or, where its sessions
+    recorded no launch of the kernel (a long process drops them), fn's
+    calls captured in one CUDA graph and replayed between CUDA events
+    (device_ms: the wrapper's device work without its host work).  No
+    wrapper reads the device on the host, so each can be captured."""
+    p = profiler_ms(fn, name)
+    if p is not None:
+        return p, "profiler_ms"
+    from bwamem_tpu_torch.microbench import device_ms
+    return device_ms(fn, 20), "device_ms"
+
+
+def device_time(fn, name, ms):
+    """The kernel's own time (own_ms), and the host cost per call: the
+    CUDA-event ms around the wrapper less it."""
+    t, key = own_ms(fn, name)
+    return {key: t, "host_ms": ms - t}
+
+
+def walk_steps(d, keys, max_steps):
+    """The inverse-Psi steps each key's SA walk takes (the plain walk's
+    loop, ops/fm.py sa_lookup_batched, counting)."""
+    import torch
+    from bwamem_tpu_torch.ops import fm as tfm
+    mask = d.sa_intv - 1
+    k = keys.to(torch.int64)
+    steps = torch.zeros_like(k)
+    for _ in range(max_steps):
+        act = (k & mask) != 0
+        if not bool(act.any()):
+            break
+        k = torch.where(act, tfm.inv_psi(d.blocks, d.primary_int, d.L2,
+                                         d.seq_len_int, k), k)
+        steps += act.to(torch.int64)
+    return steps
+
+
+CHAIN_LANES, CHAIN_STEPS = 8192, 256   # the chain sweep's dep, K = 1
+# the time keys of a record that --kernels prints
+TIME_KEYS = ("ms", "profiler_ms", "device_ms", "host_ms", "library_ms",
+             "chain_floor", "launch_cost", "bound_ms")
+
+
+def chain_ns_per_step(d):
+    """One dependent occ-row step on the index's own table: the chain
+    sweep's dep run (one chain of CHAIN_STEPS fetches on each of
+    CHAIN_LANES lanes), its kernel's device time per step."""
+    import torch
+    from bwamem_tpu_torch.ops import occ as toc
+    g = torch.Generator(device=d.device)
+    g.manual_seed(3)
+    idx0 = torch.randint(0, d.n_blocks, (1, CHAIN_LANES), generator=g,
+                         device=d.device, dtype=torch.int32)
+    ms, _ = own_ms(lambda: toc.row_chain_cuda(d.blocks, idx0, CHAIN_STEPS,
+                                              "dep"), "row_chain_kernel")
+    return ms * 1e6 / CHAIN_STEPS
+
+
+GATHER_IDS = 2 * 8192   # the seeding's rows a step (2 x LANES)
+
+
+def check_gather_launch(label, d, rec):
+    """gather_rows at GATHER_IDS rows of the index's occ table against
+    index_select (its library call) by CUDA events, beside both device
+    times, held against the plain version; and microbench.launch_cost's
+    step-by-step host cost of the call."""
+    import torch
+    from bwamem_tpu_torch import microbench
+    from bwamem_tpu_torch.ops import occ as toc
+    g = torch.Generator(device=d.device)
+    g.manual_seed(5)
+    ids = torch.randint(0, d.n_blocks, (GATHER_IDS,), generator=g,
+                        device=d.device, dtype=torch.int64)
+    args = (d.blocks, ids, False)
+    k_ms, ko = cuda_ms(lambda: toc.gather_rows_cuda(*args), 100)
+    p_ms, po = cuda_ms(lambda: toc.gather_rows_plain(*args), 1, False)
+    lib_ms, lo = cuda_ms(lambda: torch.index_select(d.blocks, 0, ids), 100)
+    err = max(max_err([(ko, po)]), max_err([(ko, lo)]))
+    if err:
+        raise RuntimeError(f"{label}: gather_rows differs ({err})")
+    r = dict(index=label, bucket=f"ids{GATHER_IDS}", ms=k_ms,
+             plain_ms=p_ms, max_abs_err=err, library_ms=lib_ms,
+             library_profiler_ms=profiler_ms(
+                 lambda: torch.index_select(d.blocks, 0, ids), None),
+             **device_time(lambda: toc.gather_rows_cuda(*args),
+                           "gather_rows_kernel", k_ms),
+             **bound(nbytes((ids, ko)) + OCC_ROW_BYTES * int(
+                 torch.unique(ids).numel()), 0))
+    r["launch_cost"] = microbench.launch_cost(d.blocks, GATHER_IDS)
+    rec["gather_rows"].append(r)
 
 
 def scratch_bytes(fn):
@@ -458,11 +568,12 @@ def check_kernels(label, idx_prefix, fq, rec):
                   + [(ko[4][ok], po[4][ok])])
     if err:
         raise RuntimeError(f"{label}: superstep slots differ ({err})")
-    rec["smem_superstep"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
-                                      max_abs_err=err, lanes=B,
-                                      over=int(over.sum()), bucket="L128",
-                                      **fm_bound(d, tsm.superstep_plain,
-                                                 args, ko)))
+    rec["smem_superstep"].append(dict(
+        index=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err, lanes=B,
+        over=int(over.sum()), bucket="L128",
+        **device_time(lambda: tsm.superstep_cuda(*args), "superstep_kernel",
+                      k_ms),
+        **fm_bound(d, tsm.superstep_plain, args, ko)))
 
     # SA walk: the main path's KEY_CAP occurrence keys of those reads
     c0, cs, cqb, cqe, n, _ = tsm.compact_streams(*ko[:4], ko[4], ko[5],
@@ -486,9 +597,18 @@ def check_kernels(label, idx_prefix, fq, rec):
     fb = fm_bound(d, lambda *a: tfm.sa_lookup_batched(d, *a),
                   (keys, sdr.sa_max_steps), kv)
     fb.update(bound(fb["bound_bytes"] + sa_b, fb["bound_ops"]))
-    rec["sa_walk"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
-                               max_abs_err=err, keys=len(keys),
-                               live_keys=nk, **fb))
+    # its chain floor: the longest walk among the live keys, each step a
+    # dependent occ-row fetch at this table size
+    longest = int(walk_steps(d, keys[:nk], sdr.sa_max_steps).max()) \
+        if nk else 0
+    ns = chain_ns_per_step(d)
+    rec["sa_walk"].append(dict(
+        index=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+        keys=len(keys), live_keys=nk, longest_walk=longest,
+        chain_ns_per_step=ns, chain_floor_ms=longest * ns / 1e6,
+        **device_time(lambda: tfm.sa_walk_cuda(d, keys, sdr.sa_max_steps),
+                      "sa_walk_kernel", k_ms), **fb))
+    check_gather_launch(label, d, rec)
 
     # extension: one WAVE_EXT group of this genome's seeds, size-sorted
     reads = []
@@ -512,11 +632,12 @@ def check_kernels(label, idx_prefix, fq, rec):
     err = max_err(list(zip(ke, pe_)))
     if err:
         raise RuntimeError(f"{label}: extension differs ({err})")
-    rec["extend_lr"].append(dict(index=label, ms=k_ms, plain_ms=p_ms,
-                                 max_abs_err=err, lanes=W, LT=LT,
-                                 distinct_seeds=len(lanes), bucket="LQ128",
-                                 **ext_bound(pk, grp, ext_args, ke, opt, LQ,
-                                             LT)))
+    rec["extend_lr"].append(dict(
+        index=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err, lanes=W,
+        LT=LT, distinct_seeds=len(lanes), bucket="LQ128",
+        **device_time(lambda: tks.extend_lr_cuda(*ext_args),
+                      "extend_lr_kernel", k_ms),
+        **ext_bound(pk, grp, ext_args, ke, opt, LQ, LT)))
     check_sw_kernels(label, eng, bns, opt, reads, cb.flat, pk, rec)
     check_long_kernels(label, eng, bns, opt, (q, qlen), reads, cb.flat, pk,
                        rec)
@@ -568,6 +689,8 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
     cells = band_cells(ql, tl, opt.w)
     r2 = dict(index=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
               lanes=eng.wave, LT=LT, cells=cells,
+              **device_time(lambda: tks.extend2_cuda(*args),
+                            "extend2_kernel", k_ms),
               **bound(nbytes(args) + nbytes(ko), OPS_PER_CELL * cells))
     if EMULATE:   # the cells visited, by the kernel's host emulation
         from bwamem_tpu_torch.ops import emulate
@@ -628,8 +751,8 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
     rec["global2"].append(dict(
         index=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err, lanes=W,
         LQ=GLQ, LT=GLT, cells=cells,
-        profiler_ms=profiler_ms(lambda: tks.global_cuda(*args),
-                                "global_kernel"),
+        **device_time(lambda: tks.global_cuda(*args), "global_kernel",
+                      k_ms),
         device_scratch_bytes=scratch_bytes(lambda: tks.global_cuda(*args)),
         **bound(nbytes(args) + nbytes(ko), OPS_PER_CELL * cells)))
 
@@ -664,10 +787,12 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
         run = int(((sc[0].astype(np.int64) + p - 1) // p * p
                    * (ko[5].cpu().numpy().astype(np.int64) + 1)).sum())
         bd = bound(nbytes(args) + nbytes(ko), OPS_PER_CELL * cells)
+        dt = device_time(lambda: tka.align_cuda(*args),
+                         f"align_kernel<{size}", k_ms)
         res.update({f"ms_{tag}": k_ms, f"plain_ms_{tag}": p_ms,
-                    f"profiler_ms_{tag}": profiler_ms(
-                        lambda: tka.align_cuda(*args),
-                        f"align_kernel<{size}"),
+                    f"profiler_ms_{tag}": dt.get("profiler_ms"),
+                    f"device_ms_{tag}": dt.get("device_ms"),
+                    f"host_ms_{tag}": dt["host_ms"],
                     f"bound_ms_{tag}": bd["bound_ms"],
                     f"bound_by_{tag}": bd["bound_by"],
                     f"cells_run_{tag}": run,
@@ -680,7 +805,8 @@ def check_sw_kernels(label, eng, bns, opt, reads, flat, pk, rec):
     # the kernels line reports the u8 pass: bwa's mate rescue of reads
     # shorter than 250 bp takes it (KSW_XBYTE when l_ms * a < 250)
     res.update(ms=res["ms_u8"], plain_ms=res["plain_ms_u8"],
-               profiler_ms=res["profiler_ms_u8"])
+               profiler_ms=res["profiler_ms_u8"],
+               device_ms=res["device_ms_u8"], host_ms=res["host_ms_u8"])
     rec["align2"].append(res)
 
 
@@ -776,6 +902,8 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
             index=label, bucket=f"L{L}", ms=k_ms, plain_ms=p_ms,
             max_abs_err=err, lanes=B, need2=int(ko[8].sum()),
             over=int(ko[7].sum()),
+            **device_time(lambda: tsm.smem_iter_step_cuda(*args),
+                          "iter_step_kernel", k_ms),
             **fm_bound(d, tsm.smem_iter_step_plain, args, ko)))
 
     # the superstep at the long buckets, with their stream caps; the
@@ -809,7 +937,9 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
         rec["smem_superstep"].append(dict(
             index=label, bucket=f"L{L}", ms=k_ms, plain_ms=p_ms,
             max_abs_err=err, lanes=B, plain_lanes=n, over=int(over.sum()),
-            full_length_matches=full, **fb))
+            full_length_matches=full,
+            **device_time(lambda: tsm.superstep_cuda(*k_args),
+                          "superstep_kernel", k_ms), **fb))
 
     # the fused extension at the long query buckets: seeds of the cut
     # reads at the bucket's widest target
@@ -838,6 +968,8 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
             distinct_seeds=len(lanes),
             longest_side=int(max(lpk["llq"][lanes].max(),
                                  lpk["rlq"][lanes].max())),
+            **device_time(lambda: tks.extend_lr_cuda(*full_args),
+                          "extend_lr_kernel", k_ms),
             **ext_bound(lpk, grp, full_args, ke, opt, L, LT)))
 
     # the row builder (BWAMEM_TPU_ONCHIP_EXT=1) over WAVE_EXT seeds
@@ -866,6 +998,8 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
             index=label, bucket=f"LQ{LQ}", ms=k_ms, plain_ms=p_ms,
             max_abs_err=err, host_rows_err=host_err, lanes=W, LT=LT,
             distinct_seeds=len(lanes),
+            **device_time(lambda: teb.build_rows_cuda(*args),
+                          "build_rows_kernel", k_ms),
             **bound(nbytes(args[:1] + args[3:]) + out_b // 2 + out_b, 0)))
 
 
@@ -1036,13 +1170,9 @@ def main(argv):
                       os.path.join(BIG, "reads_se.fq"), rec)
     if kernels_only:
         say("kernels_only", root=os.path.abspath(root), smi=smi,
-            ms={k: {**{r.get("bucket", "-") + "@" + r["index"]: r["ms"]
-                       for r in v},
-                    **{"i16@" + r["index"]: r["ms_i16"]
-                       for r in v if "ms_i16" in r},
-                    **{"profiler" + key[11:] + "@" + r["index"]: r[key]
-                       for r in v for key in r
-                       if key.startswith("profiler_ms")}}
+            ms={k: {r.get("bucket", "-") + "@" + r["index"]:
+                    {key: r[key] for key in r if key.startswith(TIME_KEYS)}
+                    for r in v}
                 for k, v in rec.items() if v})
         return 0
 
@@ -1125,12 +1255,41 @@ def main(argv):
         (_kernels.GATHER, _kernels.OCC4, _kernels.CHAIN, _kernels.LOOP),
         "the microbench sweep"))
 
+    kernels = kernels_line(rec, launches, buckets)
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernels_line(rec, launches, buckets):
+    """The kernels JSON record: one entry per kernel, from its records
+    (rec), its launches on its path and its per-bucket launches."""
+    from bwamem_tpu_torch.ops import _kernels
     kernels = []
     for k in _kernels.KERNELS:
         # ms and plain_ms: the L=128/LQ=128 shape (or the kernel's only
         # one) on the largest index measured; the other buckets beside
         main = [r for r in rec[k.name]
                 if r.get("bucket") in (None, "L128", "LQ128")][-1]
+        # the kernel's own time: torch.profiler's for the kernels of
+        # phase 2, CUDA-graph replay for the sweep's; the host cost is the
+        # rest of the CUDA-event ms
+        dev_ms = main.get("profiler_ms") or main.get("device_ms")
+        extra = {}
+        if k is _kernels.SA:
+            extra = {key: main[key] for key in (
+                "longest_walk", "chain_ns_per_step", "chain_floor_ms")}
+        if k is _kernels.GATHER:
+            g = [r for r in rec[k.name]
+                 if r.get("bucket") == f"ids{GATHER_IDS}"][-1]
+            extra = {f"ids{GATHER_IDS}": {
+                key: g.get(key) for key in ("index", "ms", "profiler_ms",
+                                            "device_ms", "host_ms",
+                                            "library_ms",
+                                            "library_profiler_ms")}}
         kernels.append(dict(
             name=k.name, route="cuda", source=k.source,
             replaces=k.replaces, launches=launches[k.name],
@@ -1138,10 +1297,15 @@ def main(argv):
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main.get("library_ms"), index=main["index"],
-            device_ms=main.get("device_ms"),
+            device_ms=dev_ms,
+            device_ms_by="profiler" if main.get("profiler_ms")
+            else "cuda_graph",
+            host_ms=None if dev_ms is None else main["ms"] - dev_ms,
             bucket_launches={b: n for b, n in buckets.items()
                              if b.startswith(k.name + "_")},
-            bucket_ms={r["bucket"]: [r["ms"], r["plain_ms"]]
+            bucket_ms={r["bucket"]: [r["ms"], r["plain_ms"],
+                                     r.get("profiler_ms")
+                                     or r.get("device_ms")]
                        for r in rec[k.name]
                        if "bucket" in r and r["index"] == main["index"]},
             bucket_bound_ms={r["bucket"]: r["bound_ms"]
@@ -1150,16 +1314,13 @@ def main(argv):
                              and r["index"] == main["index"]},
             # align2's i16 pass and the bounds over the cells run, the
             # wrappers' device scratch
+            **extra,
             **{key: v for key, v in main.items()
                if key.startswith(("ms_", "plain_ms_", "bound_ms_",
                                   "bound_run_ms_", "device_scratch",
-                                  "profiler_ms"))}))
-    print(smi)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}))
-    return 0
+                                  "profiler_ms", "device_ms_",
+                                  "host_ms_"))}))
+    return kernels
 
 
 def check_golden(args, path, golden, env=None):

@@ -670,3 +670,114 @@ def test_iter_step_kernel_at_the_edges(engine, B):
         k, p = smem_iter_step_cuda(*args), smem_iter_step_plain(*args)
         for i, (a, b) in enumerate(zip(k, p)):
             assert torch.equal(a.long(), b.long()), i
+
+
+# ---- the launch path: no sync, lanes past their bucket, the row builder
+# ---- at the edges
+
+def _on(x, dev):
+    """Tensors and the index of a wrapper's arguments, moved to dev."""
+    from bwamem_tpu_torch.ops.fm import DeviceFmIndex
+    if isinstance(x, (torch.Tensor, DeviceFmIndex)):
+        return x.to(dev)
+    return x
+
+
+def _card_case(engine, wrapper, over):
+    """tests/test_torch_launch.py's case for `wrapper` on the card, the
+    SMEM wrappers on the bundled index, and the kernel record it counts
+    on."""
+    from bwamem_tpu_torch.ops import _kernels
+    from tests.test_torch_launch import WRAPPERS
+    eng, _ = engine
+    fn, args = WRAPPERS[wrapper](over)
+    if wrapper in ("superstep", "iter_step"):
+        args = (eng.dfm,) + args[1:]
+    k = {"extend_lr": _kernels.EXTEND, "extend2": _kernels.EXTEND2,
+         "global2": _kernels.GLOBAL2, "align2": _kernels.ALIGN2,
+         "superstep": _kernels.SMEM, "iter_step": _kernels.SMEM1,
+         "build_rows": _kernels.BUILD}[wrapper]
+    return fn, tuple(_on(a, eng.device) for a in args), k
+
+
+@pytest.mark.parametrize("wrapper", ["align2", "build_rows", "extend2",
+                                     "extend_lr", "global2", "iter_step",
+                                     "superstep"])
+def test_lane_past_its_bucket_on_the_card_does_not_fault(engine, wrapper):
+    """Lengths on the card are not read back: a lane past its bucket
+    launches, the kernel bounds its reads by the bucket, the stream ends
+    without a fault, and the launch is counted.  The row builder clamps
+    as its plain version does, so it still equals it."""
+    fn, args, k = _card_case(engine, wrapper, True)
+    n0 = k.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert k.launches == n0 + 1
+    if wrapper == "build_rows":
+        from bwamem_tpu_torch.ops.extbuild import build_rows_plain
+        for a, b in zip(got, build_rows_plain(*args)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wrapper", ["align2", "build_rows", "extend2",
+                                     "extend_lr", "global2", "iter_step",
+                                     "superstep", "sa_walk", "gather_rows",
+                                     "occ4", "row_chain", "affine_loop"])
+def test_wrapper_launches_without_a_sync(engine, wrapper):
+    """Every wrapper, its inputs on the card, runs under
+    torch.cuda.set_sync_debug_mode("error"), which raises on any
+    operation that waits for the stream (a device value read on the
+    host, a copy to the host)."""
+    from bwamem_tpu_torch.ops import fm as tfm, occ as toc
+    eng, _ = engine
+    dev = eng.device
+    d = eng.dfm
+    keys = torch.arange(0, 4096, device=dev, dtype=torch.int64)
+    other = {
+        "sa_walk": (lambda: tfm.sa_walk_cuda(d, keys, 64)),
+        "gather_rows": (lambda: toc.gather_rows_cuda(d.blocks, keys)),
+        "occ4": (lambda: toc.occ4_cuda(d.blocks, d.primary_int, keys)),
+        "row_chain": (lambda: toc.row_chain_cuda(
+            d.blocks, keys[:256].to(torch.int32).view(1, -1), 4)),
+        "affine_loop": (lambda: toc.affine_loop_cuda(
+            torch.ones(64, 128, device=dev), 8))}
+    if wrapper in other:
+        call = other[wrapper]
+    else:
+        fn, args, _ = _card_case(engine, wrapper, False)
+        call = lambda: fn(*args)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("LQ,LT", [(128, 544), (512, 1056), (128, 546)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("kind", ["qb0_zero", "seed_ends_read", "forward",
+                                  "reverse", "rmax0_zero",
+                                  "rmax1_twice_l_pac", "last_pac_byte",
+                                  "out_of_range"])
+def test_build_rows_kernel_at_the_edges(engine, kind, LQ, LT):
+    """bm_build_rows (a thread per 16-byte chunk) against its plain
+    version and its host emulation on the edge lanes of
+    tests/test_torch_extbuild_host.py, 257 seeds (a partial block), a
+    reads matrix 150 bases wide; lanes out of range clamp as the plain
+    version does.  The launch counted."""
+    from bwamem_tpu_torch.ops import _kernels, emulate
+    from bwamem_tpu_torch.ops.extbuild import build_rows_cuda, build_rows_plain
+    from tests.test_torch_extbuild_host import edge_args
+    eng, bns = engine
+    cpu_args = edge_args(bns, kind, 257, 150, LQ, LT, LQ + LT)
+    args = tuple(_on(a, eng.device) for a in cpu_args)
+    n0 = _kernels.BUILD.launches
+    got = build_rows_cuda(*args)
+    torch.cuda.synchronize()
+    assert _kernels.BUILD.launches == n0 + 1
+    for a, b, c in zip(got, build_rows_plain(*args),
+                       emulate.build_rows(*cpu_args)):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), c)

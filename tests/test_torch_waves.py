@@ -53,7 +53,7 @@ def _compare(qb, tb, qlen, tlen, mat, endsc, size):
     T = torch.from_numpy
     got = ksw_align_batched(T(qb), T(tb), T(qlen), T(tlen),
                             T(mat.astype(np.int8)), 6, 1, 6, 1, T(endsc),
-                            size=size, LQV=lqv, LT=lt)
+                            shift=-int(mat.min()), size=size, LQV=lqv, LT=lt)
     for name, g, w in zip(("gmax", "te", "qe", "saturated", "row_max",
                            "last"), got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w),
