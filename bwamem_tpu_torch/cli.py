@@ -7,9 +7,19 @@ table, ``-v 4``/``-v 5`` tracing included), with ``--device cuda|cpu`` in
 place of ``--engine``.  ``cuda`` runs the seeding, SA-walk, extension,
 global-alignment and local-SW kernels on the GPU and fails when there is
 none; ``cpu`` runs their plain PyTorch versions.  BWAMEM_TPU_CHUNK_BP
-sets the chunk size in bases, as in ``bwamem_tpu.cli``.  The mesh,
-table-sharding, multi-host and profiler options are not ported yet and
-are refused.  Every other bwa command runs without JAX in
+sets the chunk size in bases, as in ``bwamem_tpu.cli``.
+
+    --mesh N|auto          shard every launch's lanes over the first N
+                           cards (auto: all), the index on each
+                           (parallel/mesh.py); under --device cpu, N CPU
+                           shards
+    --distributed C,N,I    process I of N, rendezvous at C (host:port):
+                           --shard I/N by default, the engine on card
+                           I mod the cards there are (parallel/multihost.py)
+    --profile DIR          a torch.profiler trace of the run into DIR
+
+Only ``--shard-tables`` (the tables row-sharded over the mesh) is not
+ported yet and is refused.  Every other bwa command runs without JAX in
 ``bwamem_tpu.cli`` already.  The port imports nothing of that package:
 the host modules it needs are its own copies.
 """
@@ -20,7 +30,7 @@ import os
 import sys
 
 PACKAGE_VERSION = "0.7.8-r455"  # output-compat version (top.c:10)
-_REFUSED = ("mesh", "shard-tables", "distributed", "profile")
+_REFUSED = ("shard-tables",)
 
 
 def set_rg(s: str):
@@ -42,6 +52,24 @@ def set_rg(s: str):
     return rg_line, rg_line[p:q]
 
 
+def _profiler(trace_dir, device):
+    """torch.profiler around the run (the CPU activity, and the CUDA one
+    on a card), its trace written into trace_dir by
+    tensorboard_trace_handler (the counterpart of jax.profiler.trace,
+    JAX cli.py:271); a null context without a directory."""
+    import contextlib
+    if not trace_dir:
+        return contextlib.nullcontext()
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(trace_dir))
+
+
 def main_mem(argv):
     import getopt as _getopt
     from bwamem_tpu_torch.config import (MemOptions, fill_scmat, MEM_F_PE,
@@ -60,6 +88,7 @@ def main_mem(argv):
     verbose = 3
     device = "cuda"
     shard_spec = None
+    mesh_spec = dist_spec = profile_dir = None
     try:
         opts, args = _getopt.getopt(
             argv, "epaMCSPHk:c:v:s:r:t:b:R:A:B:O:E:U:w:L:d:T:Q:D:m:I:",
@@ -171,6 +200,13 @@ def main_mem(argv):
         elif c == "shard":  # i/n: process chunks i, i+n, ... of the input
             parts = val.split("/")
             shard_spec = (int(parts[0]), int(parts[1]))
+        elif c == "mesh":
+            mesh_spec = val
+        elif c == "distributed":  # coord_addr,num_processes,process_id
+            parts = val.split(",")
+            dist_spec = (parts[0], int(parts[1]), int(parts[2]))
+        elif c == "profile":
+            profile_dir = val
         elif c in _REFUSED:
             sys.stderr.write(f"[E::main_mem] --{c} is not ported to the "
                              f"PyTorch package yet (see ROADMAP.md)\n")
@@ -204,13 +240,37 @@ def main_mem(argv):
         pool = WorkerPool(fm, bns, pac, opt.n_threads,
                           index_prefix=args[0])
 
+    multihost = None
     try:
         import torch
         from bwamem_tpu_torch.ops.engine import TorchSeedingEngine
         if device == "cuda" and not torch.cuda.is_available():
             sys.stderr.write("[E::main_mem] --device cuda: no CUDA device\n")
             return 1
-        engine = TorchSeedingEngine(fm, device)
+        if dist_spec is not None:
+            # the rendezvous after the pool's fork; --shard defaults to
+            # this process's stripe (JAX cli.py:221-233)
+            from bwamem_tpu_torch.parallel import multihost
+            multihost.initialize(*dist_spec)
+            if shard_spec is None:
+                shard_spec = (dist_spec[2], dist_spec[1])
+            device = multihost.local_device(device)
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            sys.stderr.write("[M::main_mem] distributed: process %d of %d"
+                             " on %s\n" % (dist_spec[2], dist_spec[1],
+                                           device))
+        mesh = None
+        if mesh_spec:   # --mesh N|auto: the lanes over several devices
+            from bwamem_tpu_torch.parallel.mesh import make_mesh
+            mesh = make_mesh(None if mesh_spec == "auto" else int(mesh_spec),
+                             device)
+            if len(mesh) > 1:
+                sys.stderr.write("[M::main_mem] reads mesh over %d devices\n"
+                                 % len(mesh))
+            else:
+                mesh = None
+        engine = TorchSeedingEngine(fm, device, mesh=mesh)
 
         reader = make_chunk_reader(args[1],
                                    args[2] if len(args) > 2 else None)
@@ -261,12 +321,15 @@ def main_mem(argv):
                 out.write(r.sam)
 
         from bwamem_tpu_torch.core.pipeline import process_chunk_stream
-        process_chunk_stream(opt, fm, bns, pac, chunk_iter(), pes0,
-                             rg_id or "", engine, verbose, pool=pool,
-                             on_start=on_start, emit=emit)
+        with _profiler(profile_dir, engine.device):
+            process_chunk_stream(opt, fm, bns, pac, chunk_iter(), pes0,
+                                 rg_id or "", engine, verbose, pool=pool,
+                                 on_start=on_start, emit=emit)
     finally:
         if pool is not None:
             pool.close()
+        if multihost is not None:
+            multihost.shutdown()
     if verbose >= 3:
         # the reference manager's shutdown line (software/fastmap.c:427)
         sys.stderr.write("[M::main_mem] total device kernel time %fs over"

@@ -351,6 +351,7 @@ def launch_cost(table: torch.Tensor, n: int, seed: int = 0) -> dict:
     raw = _kernels._raw_stream
     steps = {
         "checks": checks,
+        "device_guard": lambda: _kernels._current_card() == idx,
         "stream": lambda: raw(idx),
         "convert": lambda: (_kernels.on_card(table, torch.int32, idx),
                             _kernels.on_card(ids, torch.int64, idx)),
@@ -359,7 +360,7 @@ def launch_cost(table: torch.Tensor, n: int, seed: int = 0) -> dict:
         "ctypes_call": lambda: entry(*args, raw(idx)),
         # the same call for no ids: ctypes and cudaGetLastError, no launch
         "ctypes_no_launch": lambda: entry(*args[:4], 0, *args[5:], raw(idx)),
-        "count": scratch.count,
+        "count": lambda: scratch.count(idx),
     }
     res = {"ids": n, "calls": LAUNCH_CALLS,
            "steps_ns": {k: per_call(fn) for k, fn in steps.items()}}

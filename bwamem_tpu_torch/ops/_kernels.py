@@ -12,9 +12,14 @@ launch count.  ``Kernel.launch`` is the one launch path of every wrapper:
 the entry point is resolved once, every argument is a plain int (a
 pointer from ``data_ptr()``, a size), the stream is the current stream's
 raw handle, read without building a ``torch.cuda.Stream``, and the call
-raises when the entry returns an error.  It adds one to the count, with
-the launch's shape bucket where the kernel has several (``L256``,
-``LQ512``), so a run can show which buckets it went through.  A launch
+raises when the entry returns an error.  A ``<<<...>>>`` launch goes to
+the current card, so the call runs with the tensors' card current: where
+another card is current (a shard of a mesh, a process on ``cuda:1``) it
+is made current around the call and the previous one restored, and
+where it is current already nothing is set.  It adds one to the count, to
+the count of the card it launched on (``by_card``), and to that of the
+launch's shape bucket where the kernel has several (``L256``,
+``LQ512``), so a run can show which cards and buckets it went through.  A launch
 never synchronises: no wrapper reads a device value on the host.  A
 length that a caller holds on the host (a CPU tensor) is checked there
 (``check_host_lengths``); a length on the card is not read, and each
@@ -42,36 +47,50 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 class Kernel:
-    """A kernel's identity, its entry point and its launch count."""
+    """A kernel's identity, its entry point and its launch counts: in
+    all, per card and per shape bucket."""
 
     def __init__(self, name: str, source: str, replaces: str, entry: str):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.entry = entry
-        self.launches = 0
+        self.by_card = {}   # card index -> launches
         self.buckets = {}   # "<name>_<bucket>" -> launches
         self._lock = threading.Lock()
         self._fn = None
 
-    def count(self, bucket: str = "") -> None:
+    @property
+    def launches(self) -> int:
+        """Launches on every card."""
         with self._lock:
-            self.launches += 1
+            return sum(self.by_card.values())
+
+    def count(self, card: int, bucket: str = "") -> None:
+        with self._lock:
+            self.by_card[card] = self.by_card.get(card, 0) + 1
             if bucket:
                 key = f"{self.name}_{bucket}"
                 self.buckets[key] = self.buckets.get(key, 0) + 1
 
     def launch(self, device_index: int, *args, bucket: str = "") -> None:
         """Call the entry point with args (plain ints) and the current
-        stream of card device_index, raise if the launch was refused, and
-        count it."""
+        stream of card device_index, with that card current, raise if the
+        launch was refused, and count it."""
         fn = self._fn
         if fn is None:
             fn = self._fn = getattr(library(), self.entry)
-        rc = fn(*args, _raw_stream(device_index))
+        if _current_card() == device_index:
+            rc = fn(*args, _raw_stream(device_index))
+        else:
+            prev = _enter_card(device_index)
+            try:
+                rc = fn(*args, _raw_stream(device_index))
+            finally:
+                _leave_card(prev)
         if rc:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {rc}")
-        self.count(bucket)
+        self.count(device_index, bucket)
 
 
 SMEM = Kernel("smem_superstep", "bwamem_tpu_torch/csrc/smem.cu",
@@ -109,7 +128,7 @@ KERNELS = (SMEM, SA, EXTEND, EXTEND2, GLOBAL2, ALIGN2, SMEM1, BUILD, GATHER,
 def reset_counts() -> None:
     for k in KERNELS:
         with k._lock:
-            k.launches = 0
+            k.by_card = {}
             k.buckets = {}
 
 
@@ -219,6 +238,23 @@ def _raw_stream(device_index: int) -> int:
     """The current stream's handle on card device_index as an int, read
     without building a torch.cuda.Stream."""
     return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def _current_card() -> int:
+    """The calling thread's current card."""
+    return torch._C._cuda_getDevice()
+
+
+def _enter_card(idx: int) -> int:
+    """Make card idx current for the calling thread; returns the card
+    that was."""
+    return torch.cuda._exchange_device(idx)
+
+
+def _leave_card(prev: int) -> None:
+    """Make card prev current again, as torch.cuda.device does on exit
+    (without creating a context on a card that has none)."""
+    torch.cuda._maybe_exchange_device(prev)
 
 
 def card_of(t: torch.Tensor, what: str) -> int:

@@ -41,6 +41,16 @@ to the scalar oracle (core.swdrive.serve_host) and are counted in
 kernel's shapes, ``wave_host_tail`` for rounds with fewer than MIN_WAVE
 live requests; ``wave_rounds`` counts the rounds.
 
+Every seeding, SA-walk and SW launch but two goes through
+parallel.mesh.ShardedKernels, which takes its lanes on the host: over
+the engine's one device, or over a reads mesh (``mesh``, a tuple of
+devices from parallel/mesh.py make_mesh; JAX engine.py:110-166), the
+index and the scoring matrix replicated on each device, the lanes split.
+The lane widths must be divisible by the shard count.  As in the JAX
+engine, only the L=128 bucket seeds under the mesh (longer reads chain on
+the host oracle), the on-device row builder stays off, and align2 and the
+SUPERSTEP=0 route's iterator steps run on the mesh's first device.
+
 The JAX engine's speculative extension cache (ExtCache,
 _speculate_extensions) is not ported: on the routes that reach
 drive_waves it is bypassed (traces) or over its budget (seed-rich
@@ -61,8 +71,7 @@ from bwamem_tpu_torch.core import nfinalize
 
 from .extbuild import extend_lr_onchip, pac_tensor, reads_matrix
 from .fm import DeviceFmIndex
-from .ksw import (cigars_from_tracebacks, ksw_extend2_batched,
-                  ksw_extend_lr_batched, ksw_global2_batched)
+from .ksw import cigars_from_tracebacks
 from .ksw_align import align2_wave
 from .seeding import BatchedSeeder
 
@@ -129,22 +138,36 @@ class TorchSeedingEngine:
     """Device engine for core.pipeline: the same methods and counters
     that pipeline calls on the JAX engine."""
 
-    def __init__(self, fm_host, device):
+    def __init__(self, fm_host, device, mesh=None):
         _require_native()
         env = os.environ.get
-        self.device = torch.device(device)
         self.fm_host = fm_host
-        self.dfm = DeviceFmIndex.from_host(fm_host).to(self.device)
-        self.seeder = BatchedSeeder(self.dfm, fm_host, timer=self)
-        # per-chunk length buckets: the L=256 and L=512 seeders are
-        # built when a chunk first needs them (engine.py:156-199)
-        self._seeders = {self.seeder.L: self.seeder}
-        self.dev_max_len = int(env("BWAMEM_TPU_DEV_MAX_LEN", "512"))
         # lane-group widths of the launches (engine.py:24-46): extend2
         # and align2 waves, extend_lr groups, global2 waves
         self.wave = int(env("BWAMEM_TPU_WAVE", "512"))
         self.wave_ext = int(env("BWAMEM_TPU_WAVE_EXT", str(self.wave * 2)))
         self.wave_glo = int(env("BWAMEM_TPU_WAVE_GLO", str(self.wave * 2)))
+        # every launch but align2 and the iterator steps goes through the
+        # kernels, over a reads mesh (engine.py:116-152) or over this one
+        # device; the index is replicated on each of the mesh's devices
+        from bwamem_tpu_torch.parallel.mesh import ShardedKernels
+        self.mesh = mesh
+        if mesh is not None:     # the engine's device is the mesh's first
+            device = mesh[0]
+            if len(mesh) > 1:
+                self._check_widths(len(mesh))
+        self.device = torch.device(device)
+        self.kernels = ShardedKernels(
+            (self.device,) if mesh is None else mesh,
+            DeviceFmIndex.from_host(fm_host))
+        self.dfm = self.kernels.index_on(self.device)
+        self.seeder = BatchedSeeder(self.dfm, fm_host, self, self.kernels)
+        # per-chunk length buckets: the L=256 and L=512 seeders are
+        # built when a chunk first needs them (engine.py:156-199); a mesh
+        # keeps the L=128 one
+        self._seeders = {self.seeder.L: self.seeder}
+        self.dev_max_len = (128 if mesh is not None else
+                            int(env("BWAMEM_TPU_DEV_MAX_LEN", "512")))
         self.min_wave = (int(env("BWAMEM_TPU_MIN_WAVE", "0"))
                          or _default_min_wave())
         # extension target buckets of the three query widths
@@ -166,6 +189,18 @@ class TorchSeedingEngine:
         self.kernel_time = 0.0
         self.n_dispatches = 0
         self.kernel_time_by_tag = {}
+
+    def _check_widths(self, n: int) -> None:
+        """Every launch width must split evenly over n shards
+        (engine.py:125-130)."""
+        env = os.environ.get
+        for width in (int(env("BWAMEM_TPU_LANES", "512")),
+                      int(env("BWAMEM_TPU_SA_SLICE", "16384")), self.wave,
+                      self.wave_ext, self.wave_glo):
+            if width % n:
+                raise ValueError(
+                    f"lane width {width} not divisible by mesh size "
+                    f"{n}; adjust BWAMEM_TPU_LANES/WAVE")
 
     def _native_ok(self) -> bool:
         return True  # checked in __init__: the engine needs the library
@@ -199,8 +234,8 @@ class TorchSeedingEngine:
         device-eligible read (JAX engine.py:181-199)."""
         L = 128 if max_rl <= 128 else (256 if max_rl <= 256 else 512)
         if L not in self._seeders:
-            self._seeders[L] = BatchedSeeder(self.dfm, self.fm_host,
-                                             timer=self, L=L)
+            self._seeders[L] = BatchedSeeder(self.dfm, self.fm_host, self,
+                                             self.kernels, L=L)
         return self._seeders[L]
 
     def _ext_shapes(self, reads):
@@ -373,11 +408,14 @@ class TorchSeedingEngine:
         order = dev[np.argsort(pk["lt_need"][dev], kind="stable")]
         mat = self._mat_dev(opt)
         B = self.wave_ext
-        to_dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
         gap = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w,
                opt.pen_clip5, opt.pen_clip3, opt.zdrop)
+        # the row builder stays off under a mesh (engine.py:468); it
+        # takes its lanes on the device, the kernels on the host
         onchip = (os.environ.get("BWAMEM_TPU_ONCHIP_EXT", "0")
-                  in ("1", "force"))
+                  in ("1", "force") and self.mesh is None)
+        to_dev = ((lambda a: torch.from_numpy(a).to(self.device))
+                  if onchip else torch.from_numpy)
         if onchip and len(order):
             # the reads up to the longest one a device lane extends go up
             # once per chunk; each group then uploads its scalars only
@@ -415,7 +453,7 @@ class TorchSeedingEngine:
                     LT=LT)
             else:
                 llq, llt, rlq, rlt = common
-                dev_out = ksw_extend_lr_batched(
+                dev_out = self.kernels.extend_lr(
                     rows("lq_pk", LQ), rows("lt_pk", LT), llq, llt,
                     rows("rq_pk", LQ), rows("rt_pk", LT), rlq, rlt, mat,
                     *gap, scal("scs", np.int32), scal("sqb", np.int32),
@@ -480,7 +518,7 @@ class TorchSeedingEngine:
         empty lanes (each extension LT bucket, the extend2 and global2
         waves), so no build lands inside a served chunk."""
         B, LQ = self.wave_ext, self._ext_lq
-        dev = self.device
+        dev = torch.device("cpu")   # lanes go to the kernels on the host
         mat = self._mat_dev(opt)
         gap = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
 
@@ -494,16 +532,16 @@ class TorchSeedingEngine:
         zi, z6 = lanes(B), lanes(B, torch.int64)
         for LT in self.lt_buckets:
             zq, zt = rows(B, LQ), rows(B, LT)
-            outs.append(ksw_extend_lr_batched(
+            outs.append(self.kernels.extend_lr(
                 zq, zt, zi, zi, zq, zt, zi, zi, mat, *gap, opt.w,
                 opt.pen_clip5, opt.pen_clip3, opt.zdrop, zi, zi, z6, z6,
                 zi + 1, zi, LQ=LQ, LT=LT))
         zi = lanes(self.wave)
-        outs.append(ksw_extend2_batched(
+        outs.append(self.kernels.extend2(
             rows(self.wave, LQ), rows(self.wave, self._ext_lt), zi, zi, mat,
             *gap, zi + 1, zi, opt.zdrop, zi, LQ=LQ, LT=self._ext_lt))
         zi = lanes(self.wave_glo)
-        outs.append(ksw_global2_batched(
+        outs.append(self.kernels.global2(
             rows(self.wave_glo, self._glo_lq),
             rows(self.wave_glo, self._glo_lt), zi + 1, zi, mat, *gap,
             zi + 1, LQ=self._glo_lq, LT=self._glo_lt))
@@ -569,9 +607,6 @@ class TorchSeedingEngine:
                         len(reqs) - len(dev_idx))
         return dev_idx
 
-    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
     def _fetch_groups(self, pend, tag, outs):
         """Fetch each launched group and hand every lane its tuple."""
         for grp, dev_out in pend:
@@ -589,7 +624,6 @@ class TorchSeedingEngine:
         dev_idx = self._host_lanes(
             opt, reqs, lambda r: len(r[1]) <= LQ and len(r[2]) <= LT,
             "extend2", outs)
-        T = self._to_dev
         pend = []   # launch every group before fetching any
         for lo in range(0, len(dev_idx), self.wave):
             grp = dev_idx[lo:lo + self.wave]
@@ -602,10 +636,10 @@ class TorchSeedingEngine:
                 qb[bi, :len(qs)] = qs
                 tb[bi, :len(rs)] = rs
                 sc[:, bi] = (len(qs), len(rs), w, pen, h0)
-            pend.append((grp, ksw_extend2_batched(
-                T(_pack4(qb)), T(_pack4(tb)), T(sc[0]), T(sc[1]),
+            pend.append((grp, self.kernels.extend2(
+                _pack4(qb), _pack4(tb), sc[0], sc[1],
                 self._mat_dev(opt), opt.o_del, opt.e_del, opt.o_ins,
-                opt.e_ins, T(sc[2]), T(sc[3]), opt.zdrop, T(sc[4]),
+                opt.e_ins, sc[2], sc[3], opt.zdrop, sc[4],
                 LQ=LQ, LT=LT)))
         self._fetch_groups(pend, "extend2", outs)
         return outs
@@ -623,7 +657,6 @@ class TorchSeedingEngine:
                                   and len(r[4]) <= LT_max),
             "extend_lr", outs)
         dev_idx.sort(key=lambda i: max(len(reqs[i][2]), len(reqs[i][4])))
-        T = self._to_dev
         pend = []
         for lo in range(0, len(dev_idx), self.wave_ext):
             grp = dev_idx[lo:lo + self.wave_ext]
@@ -646,12 +679,12 @@ class TorchSeedingEngine:
                 sc[:, bi] = (len(qs), len(rs), len(qrt), len(rrt), sc_seed,
                              s_qbeg, l_query, s_len)
                 rb[:, bi] = (s_rbeg, rmax0)
-            pend.append((grp, ksw_extend_lr_batched(
-                T(_pack4(lqb)), T(_pack4(ltb)), T(sc[0]), T(sc[1]),
-                T(_pack4(rqb)), T(_pack4(rtb)), T(sc[2]), T(sc[3]),
+            pend.append((grp, self.kernels.extend_lr(
+                _pack4(lqb), _pack4(ltb), sc[0], sc[1],
+                _pack4(rqb), _pack4(rtb), sc[2], sc[3],
                 self._mat_dev(opt), opt.o_del, opt.e_del, opt.o_ins,
                 opt.e_ins, opt.w, opt.pen_clip5, opt.pen_clip3, opt.zdrop,
-                T(sc[4]), T(sc[5]), T(rb[0]), T(rb[1]), T(sc[6]), T(sc[7]),
+                sc[4], sc[5], rb[0], rb[1], sc[6], sc[7],
                 LQ=LQ, LT=LT)))
         self._fetch_groups(pend, "extend_lr", outs)
         return outs
@@ -665,7 +698,6 @@ class TorchSeedingEngine:
         dev_idx = self._host_lanes(
             opt, reqs, lambda r: 0 < len(r[1]) <= LQ and 0 < len(r[2]) <= LT,
             "global2", outs)
-        T = self._to_dev
         pend = []
         for lo in range(0, len(dev_idx), self.wave_glo):
             grp = dev_idx[lo:lo + self.wave_glo]
@@ -678,10 +710,10 @@ class TorchSeedingEngine:
                 qb[bi, :len(qs)] = qs
                 tb[bi, :len(rs)] = rs
                 sc[:, bi] = (len(qs), len(rs), w)
-            pend.append((grp, ksw_global2_batched(
-                T(_pack4(qb)), T(_pack4(tb)), T(sc[0]), T(sc[1]),
+            pend.append((grp, self.kernels.global2(
+                _pack4(qb), _pack4(tb), sc[0], sc[1],
                 self._mat_dev(opt), opt.o_del, opt.e_del, opt.o_ins,
-                opt.e_ins, T(sc[2]), LQ=LQ, LT=LT)))
+                opt.e_ins, sc[2], LQ=LQ, LT=LT)))
         for grp, dev_out in pend:
             score, ops, n_ops, ri, rk = self._timed(
                 lambda d=dev_out: [t.cpu().numpy() for t in d],

@@ -15,6 +15,7 @@ when the doubled pack fits 31 bits, int64 beyond; the arithmetic itself
 runs in int64, which gives the same values.
 """
 
+import copy
 import os
 
 import numpy as np
@@ -74,6 +75,17 @@ class DeviceFmIndex(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.blocks.device
+
+    def replica(self, device) -> "DeviceFmIndex":
+        """The index with its tables on device, this one left where it is
+        (the per-card copies of a reads mesh); itself where its tables
+        lie there already."""
+        device = torch.device(device)
+        if self.blocks.device == device:
+            return self
+        new = copy.copy(self)
+        new._buffers = {k: v.to(device) for k, v in self._buffers.items()}
+        return new
 
     @property
     def n_blocks(self) -> int:

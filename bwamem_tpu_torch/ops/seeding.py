@@ -10,7 +10,14 @@ each group is one fused superstep + SA-walk dispatch
 ``BWAMEM_TPU_SUPERSTEP=0`` the iterator runs round by round instead,
 one ops.smem.smem_iter_step launch and fetch per round, the ordered
 merge and the bookkeeping between rounds on the host, and every seed's
-SA value comes from the SA-walk kernel afterwards.  Lanes that overflow
+SA value comes from the SA-walk kernel afterwards.  The fused call and
+the SA walks of _resolve_keys_device go through ``kernels`` (the
+engine's parallel.mesh.ShardedKernels: over a reads mesh, JAX
+seeding.py:65-69, :183, :256, or over the engine's one device): each
+shard of a lane group is a group of its own, with its own compact wire
+(GCAP = GCAP_PER x its lanes, KEY_CAP split alike).  The round route's
+iterator steps stay on the seeder's index, the mesh's first device, as
+in the JAX engine.  Lanes that overflow
 a device buffer re-run on the host oracle and are spliced back in place;
 SA walks past the step cap and key expansions past KEY_CAP are resolved
 the way the JAX engine resolves them, and each route is counted in the
@@ -29,8 +36,8 @@ import torch
 
 from bwamem_tpu_torch.config import MEM_F_NO_EXACT
 
-from .fm import DeviceFmIndex, sa_lookup
-from .smem import smem_iter_step, smem_superstep_sa
+from .fm import DeviceFmIndex
+from .smem import smem_iter_step
 
 Intv = Tuple[int, int, int, int]  # (x0, x1, s, info=qb<<32|qe)
 
@@ -67,12 +74,14 @@ class BatchedSeeder:
     """Per-read interval streams and seeds, computed by the device
     kernels in lane groups, for reads of up to L (128, 256 or 512) bp."""
 
-    def __init__(self, dfm: DeviceFmIndex, fm_host, timer, L: int = 128):
+    def __init__(self, dfm: DeviceFmIndex, fm_host, timer, kernels,
+                 L: int = 128):
         env = os.environ.get
         if L not in (128, 256, 512):
             raise ValueError(f"the seeding buckets are L=128, 256 and 512, "
                              f"got {L}")
         self.dfm = dfm
+        self.kernels = kernels      # the engine's ShardedKernels
         self.fm_host = fm_host      # host oracle for the overflow routes
         self.L = L                  # the seeding bucket: reads <= L bp
         # psi-walk step cap: the walk to a sampled row is ~geometric
@@ -210,26 +219,20 @@ class BatchedSeeder:
             return x0, sz, info >> 32, info & 0xFFFFFFFF, read_off
         start_width = 2 if (opt.flag & MEM_F_NO_EXACT) else 1
         sl_init = int(opt.min_seed_len * opt.split_factor + .499)
-        d = self.dfm
-        dev = d.device
         B = self.lanes
         gcap = self.gcap_per * B
+        n = self.kernels.n
         pend = []
         for lo in range(0, len(queries), B):
             grp = queries[lo:lo + B]
             qpk, qlen, slens, active = self._lane_group(opt, grp)
-            t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-            res = smem_superstep_sa(
-                d, t(qpk), t(qlen),
-                torch.full((B,), start_width, dtype=torch.int64,
-                           device=dev),
-                t(active), t(slens),
-                torch.full((B,), opt.split_width, dtype=torch.int32,
-                           device=dev),
-                int(opt.min_seed_len), int(opt.max_occ), L=self.L,
-                M=self.M, OUT_CAP=self.out_cap, GCAP=gcap,
-                KEY_CAP=self.key_cap, SA_STEPS=self.sa_max_steps)
-            pend.append((grp, res))
+            outs = self.kernels.superstep(
+                qpk, qlen, np.full(B, start_width, np.int64), active, slens,
+                np.full(B, opt.split_width, np.int32),
+                int(opt.min_seed_len), int(opt.max_occ), L=self.L, M=self.M,
+                OUT_CAP=self.out_cap, GCAP=gcap // n,
+                KEY_CAP=self.key_cap // n, SA_STEPS=self.sa_max_steps)
+            pend += [(grp[a:b], res) for (a, b), res in outs]
         xs, szs, qbs, qes, cnts, dms = [], [], [], [], [], []
         sa_vals, sa_over, sa_ok = [], [], True
         for grp, res in pend:
@@ -370,7 +373,6 @@ class BatchedSeeder:
     def _resolve_keys_device(self, keys: np.ndarray):
         """SA values of arbitrary keys through SA_SLICE-padded walks on
         the device; returns (vals int64, over bool)."""
-        d = self.dfm
         n = len(keys)
         vals = np.empty(n, dtype=np.int64)
         over = np.empty(n, dtype=bool)
@@ -379,8 +381,8 @@ class BatchedSeeder:
             sl = keys[lo:lo + self.sa_slice]
             pad = np.zeros(self.sa_slice, dtype=np.int64)
             pad[:len(sl)] = sl
-            pend.append((lo, len(sl), sa_lookup(
-                d, torch.from_numpy(pad).to(d.device), self.sa_max_steps)))
+            pend.append((lo, len(sl),
+                         self.kernels.sa_lookup(pad, self.sa_max_steps)))
         for lo, n_sl, res in pend:
             v, o = self._fetch(res, "sa")
             vals[lo:lo + n_sl] = v[:n_sl]

@@ -2,10 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (bwamem_tpu_torch) on one GPU.
 
     python3 chip_smoke.py           # all phases, one GPU
-    python3 chip_smoke.py --quick   # phases 1-3 and 5 on the bundled genome
+    python3 chip_smoke.py --quick   # phases 1-3, 5 and 6 on the bundled
+                                    # genome
     python3 chip_smoke.py --kernels [--root DIR]   # phases 1-2 only
                                     # (--root: the package of another tree,
                                     # e.g. a git archive of the parent)
+    python3 chip_smoke.py --real N [--root DIR]    # phase 1 and phase
+                                    # 4's timed 100k SE and 20k PE runs,
+                                    # N times (an A/B of the main path)
 
 Phases, each printing one line with its own numbers and seconds:
 
@@ -87,13 +91,29 @@ Phases, each printing one line with its own numbers and seconds:
    the host's launch cost that CUDA events around small calls include)
    and for gather_rows the time of index_select, its library call.
 
+6. multi-card: the engine over a reads mesh (parallel/mesh.py; every
+   card when there are two or more, else two shards on card 0, and the
+   line says which ran) through core.pipeline.process_chunk_stream: the
+   SE, SE -a -M and PE goldens and the -v 4 SE trace byte-identical, the
+   100k SE and 20k PE sets equal to phase 4's single-card SAM, timed,
+   with each sharded kernel's launches per card as Kernel.launch counts
+   them (every card of the mesh must show some); ``mem --mesh auto`` on
+   the SE golden; pairs of ``mem --distributed`` processes (rank i on
+   card i mod the cards) on the goldens and on the 100k SE set, each
+   rank's records equal to its ``--shard i/2`` twin and the pair's read
+   names the single run's, the pair's wall time beside a single
+   process's; ``mem --profile`` on the SE golden in a fresh process,
+   byte-identical, its trace naming the superstep, SA-walk and extension
+   kernels.  ``--quick`` keeps the goldens.
+
 Launch counts are zeroed just before each path and read just after: the
 default flat route (goldens, real size, long reads: superstep, SA walk
 and extend_lr launched, at L=256, L=512, LQ=256 and LQ=512 too), the
 SUPERSTEP=0 route (smem1_step, SA walk, extend_lr), the ONCHIP_EXT=1
 route (superstep, SA walk, build_rows, extend_lr) and the generator wave
-path (extend2, global2, align2), and the microbench sweep (gather_rows,
-occ4, row_chain, affine_loop).  The last three lines are nvidia-smi's
+path (extend2, global2, align2), the microbench sweep (gather_rows,
+occ4, row_chain, affine_loop), and the reads mesh of phase 6 (superstep,
+SA walk, extend_lr, extend2, global2).  The last three lines are nvidia-smi's
 name and power limit, the kernels' JSON record (launches, times, bounds,
 per-bucket launches and times) and the result JSON; any failure exits
 non-zero without them.
@@ -1101,6 +1121,8 @@ def main(argv):
     global EMULATE
     quick = "--quick" in argv
     kernels_only = "--kernels" in argv
+    real_runs = int(argv[argv.index("--real") + 1]) if "--real" in argv \
+        else 0
     root = argv[argv.index("--root") + 1] if "--root" in argv else HERE
     import torch
     if not torch.cuda.is_available():
@@ -1160,6 +1182,10 @@ def main(argv):
                     stdout=subprocess.DEVNULL)
         say("data", dir=BIG, long_sets=[s[0] for s in LONG_SETS],
             seconds=time.perf_counter() - t0)
+    for _ in range(real_runs):
+        real_size(timed_only=True)
+    if real_runs:
+        return 0
 
     # 2. kernels against their plain versions
     rec = {k.name: [] for k in _kernels.KERNELS}
@@ -1255,6 +1281,9 @@ def main(argv):
         (_kernels.GATHER, _kernels.OCC4, _kernels.CHAIN, _kernels.LOOP),
         "the microbench sweep"))
 
+    # 6. a reads mesh and two processes, counted on their own
+    multi_card(defaults)
+
     kernels = kernels_line(rec, launches, buckets)
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -1339,6 +1368,24 @@ def read_counts(kernels, path):
     return counts
 
 
+def read_cards(kernels, mesh, path):
+    """Each kernel's launches per card, as Kernel.launch counted them
+    where it launched: they must add up to its launches, and every card
+    of the mesh must show some."""
+    out = {}
+    for k in kernels:
+        cards = dict(k.by_card)
+        if sum(cards.values()) != k.launches:
+            raise RuntimeError(f"{path}: {k.name}'s launches per card "
+                               f"{cards} do not add up to {k.launches}")
+        idle = {d.index for d in mesh} - {c for c, n in cards.items() if n}
+        if idle:
+            raise RuntimeError(f"{path}: {k.name} did not launch on cards "
+                               f"{sorted(idle)}")
+        out[k.name] = {f"cuda:{c}": n for c, n in sorted(cards.items())}
+    return out
+
+
 def read_buckets(kernels, required, path):
     """The per-bucket launch counts of a path's kernels; each bucket in
     `required` must be > 0."""
@@ -1351,10 +1398,11 @@ def read_buckets(kernels, required, path):
     return counts
 
 
-def real_size():
+def real_size(timed_only=False):
     """100k SE reads and 20k pairs: timed, again with every extension
     verified, and the diff subsets against the host engine.  Returns the
-    runs the routes are held to."""
+    runs the routes are held to (with timed_only, the timed runs only:
+    `mem` in this process, index load and engine build included)."""
     idx = os.path.join(BIG, "genome.fa")
     se = os.path.join(BIG, "reads_se.fq")
     r1 = os.path.join(BIG, "reads_1.fq")
@@ -1366,6 +1414,8 @@ def real_size():
         err, dt = run_mem(args, path)
         say(f"real_{tag}", reads=n_reads, seconds=dt,
             reads_per_s=n_reads / dt, stats=device_stats(err))
+        if timed_only:
+            continue
         # again with every extension checked against the scalar twin
         vpath = os.path.join(BIG, f"port_{tag}_verify.sam")
         err, dt = run_mem(args, vpath, env={"BWAMEM_TPU_VERIFY": "1"})
@@ -1380,6 +1430,8 @@ def real_size():
         say(f"verify_{tag}", reads=n_reads, seconds=dt,
             verified_chunks=n_ok)
         defaults[tag] = (args, path, n_reads)
+    if timed_only:
+        return defaults
     # diff subsets against the host engine of the JAX package's CLI
     t0 = time.perf_counter()
     subs = []
@@ -1547,6 +1599,261 @@ def seed_rich():
             reads_per_s=n_reads / dt, identical=True,
             records=len(sam_body(mine)), host_seconds=time.perf_counter()
             - t1, stats=stats)
+
+
+# the __global__ function of each kernel, as a profiler trace names it
+SYMBOLS = {"smem_superstep": "superstep_kernel", "sa_walk": "sa_walk_kernel",
+           "extend_lr": "extend_lr_kernel", "extend2": "extend2_kernel",
+           "global2": "global_kernel", "align2": "align_kernel",
+           "smem1_step": "iter_step_kernel", "build_rows": "build_rows_kernel"}
+DIST_CHUNK_BP = {"golden": "20000", "se100k": "1000000"}
+
+
+def engine_mem(engine, fm, bns, files, out_path, flags=(), verbose=3):
+    """`mem` through an engine built here (a mesh the CLI cannot name,
+    such as two shards on one card), driven by
+    core.pipeline.process_chunk_stream as bench.py drives an engine: the
+    CLI's defaults, chunks of opt.chunk_size bases, `flags` among -a and
+    -M; the header and the records (and at verbose 4 the traces) into
+    out_path.  Returns the seconds."""
+    from bwamem_tpu_torch.config import (MEM_F_ALL, MEM_F_NO_MULTI,
+                                         MEM_F_PE, MemOptions, fill_scmat)
+    from bwamem_tpu_torch.core.pipeline import process_chunk_stream
+    from bwamem_tpu_torch.core.sam import sam_header
+    from bwamem_tpu_torch.io.native import make_chunk_reader
+    opt = MemOptions()
+    for f in flags:
+        opt.flag |= {"-a": MEM_F_ALL, "-M": MEM_F_NO_MULTI}[f]
+    if len(files) > 1:
+        opt.flag |= MEM_F_PE
+    opt.rescale_for_a()
+    opt.mat = fill_scmat(opt.a, opt.b)
+    reader = make_chunk_reader(files[0], files[1] if len(files) > 1 else None)
+
+    def chunks():
+        while True:
+            reads = reader.read_chunk(opt.chunk_size * opt.n_threads)
+            if not reads:
+                return
+            for r in reads:
+                r.comment = None
+            yield reads
+    so, se = sys.stdout, sys.stderr
+    t0 = time.perf_counter()
+    with open(out_path, "w") as f:
+        sys.stdout, sys.stderr = f, io.StringIO()
+        try:
+            f.write(sam_header(bns, None, "@PG\tID:bwa\tPN:bwa"))
+            process_chunk_stream(opt, fm, bns, bns.pac, chunks(), None, "",
+                                 engine, verbose,
+                                 emit=lambda rs: f.writelines(r.sam
+                                                              for r in rs))
+        finally:
+            sys.stdout, sys.stderr = so, se
+    return time.perf_counter() - t0
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_procs(arg_lists, out_paths, env):
+    """`python -m bwamem_tpu_torch.cli mem --device DEVICE` once per
+    argument list, all at once, stdout to its path; (stderr texts,
+    seconds until the last ended).  Any non-zero exit fails; every
+    process is ended on a timeout."""
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for args, path in zip(arg_lists, out_paths):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "bwamem_tpu_torch.cli", "mem",
+                     "--device", DEVICE] + args, stdout=f,
+                    stderr=subprocess.PIPE, cwd=HERE, text=True,
+                    env=dict(os.environ, **env)))
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dt = time.perf_counter() - t0
+    for p, err in zip(procs, errs):
+        if p.returncode:
+            raise RuntimeError(f"mem {p.args} exited {p.returncode}:\n"
+                               f"{err[-3000:]}")
+    return errs, dt
+
+
+def read_names(lines):
+    """The sorted read names of SAM lines (headers and blanks left out)."""
+    return sorted(ln.split("\t")[0] for ln in lines
+                  if ln and not ln.startswith("@"))
+
+
+def distributed_pairs(sets, names_of):
+    """Two `--distributed` processes for each (tag, mem args, chunk) set, all
+    pairs at once: rank i on card i mod the cards, --shard i/2 by
+    default.  Each rank's records must equal its `--shard i/2` twin (run
+    here, in this process, at the same chunk size) and the pair's read
+    names those of names_of[tag].  Returns the pairs' wall seconds."""
+    out = os.path.join(HERE, ".smoke_data")
+    args, paths = [], []
+    for tag, mem_args, _ in sets:
+        port = free_port()
+        for i in range(2):
+            args.append(["--distributed", f"127.0.0.1:{port},2,{i}"]
+                        + mem_args)
+            paths.append(os.path.join(out, f"dist_{tag}_{i}.sam"))
+    chunk = {s[2] for s in sets}
+    if len(chunk) != 1:
+        raise ValueError("one chunk size per call")
+    env = {"BWAMEM_TPU_CHUNK_BP": chunk.pop()}
+    errs, dt = cli_procs(args, paths, env)
+    for k, (tag, mem_args, _) in enumerate(sets):
+        body = []
+        for i in range(2):
+            if f"distributed: process {i} of 2 on {DEVICE}" \
+                    not in errs[2 * k + i]:
+                raise RuntimeError(f"distributed {tag}: rank {i} said "
+                                   f"nothing of its card")
+            recs = [ln for ln in sam_body(paths[2 * k + i])
+                    if not ln.startswith("@")]
+            twin = os.path.join(out, f"twin_{tag}_{i}.sam")
+            run_mem(["--shard", f"{i}/2"] + mem_args, twin, env)
+            if recs != [ln for ln in sam_body(twin)
+                        if not ln.startswith("@")]:
+                raise RuntimeError(f"distributed {tag}: rank {i} differs "
+                                   f"from its --shard {i}/2 twin")
+            body += recs
+        if read_names(body) != names_of[tag]:
+            raise RuntimeError(f"distributed {tag}: the pair's read names "
+                               f"are not the single run's")
+    return dt
+
+
+def multi_card(defaults):
+    """Phase 6: the engine over a reads mesh (every card when there are
+    two or more, else two shards on card 0) through process_chunk_stream
+    on the goldens, the -v 4 trace, and, unless --quick, the 100k SE and
+    20k PE sets against phase 4's single-card SAM; `mem --mesh auto`;
+    pairs of `--distributed` processes; `--profile`.  Launch counts are
+    zeroed before the mesh runs and read after them."""
+    import torch
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.engine import TorchSeedingEngine
+    from bwamem_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    out = os.path.join(HERE, ".smoke_data")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        mesh, ran = make_mesh(), f"{n_cards} cards"
+    else:
+        one = torch.device(DEVICE, 0 if DEVICE == "cuda" else None)
+        mesh, ran = (one,) * 2, "2 shards on one card"
+    ref = os.path.join(DATA, "genome.fa")
+    se = os.path.join(DATA, "reads_se.fq")
+    _kernels.reset_counts()
+    fm, bns = load_index(ref)
+    eng = TorchSeedingEngine(fm, mesh[0], mesh=mesh)
+    identical = []
+    for tag, args, golden in GOLDENS + (
+            ("se_v4", ["-v", "4", ref, se], "golden_se_v4.txt"),):
+        path = os.path.join(out, f"mesh_{tag}.sam")
+        engine_mem(eng, fm, bns, [a for a in args if a.endswith(".fq")],
+                   path, [a for a in args if a in ("-a", "-M")],
+                   4 if "-v" in args else 3)
+        if sam_body(path) != sam_body(os.path.join(DATA, golden)):
+            raise RuntimeError(f"mesh {tag}: differs from {golden} ({path})")
+        identical.append(golden)
+    real = {}
+    if defaults:
+        bfm, bbns = load_index(os.path.join(BIG, "genome.fa"))
+        beng = TorchSeedingEngine(bfm, mesh[0], mesh=mesh)
+        for tag in ("se", "pe"):
+            args, want, n_reads = defaults[tag]
+            path = os.path.join(BIG, f"mesh_{tag}.sam")
+            dt = engine_mem(beng, bfm, bbns, args[1:], path)
+            if sam_body(path) != sam_body(want):
+                raise RuntimeError(f"mesh {tag}: differs from the single-card "
+                                   f"run ({path} vs {want})")
+            real[tag] = {"reads": n_reads, "seconds": dt,
+                         "reads_per_s": n_reads / dt, "ran_on": ran}
+    sharded = (_kernels.SMEM, _kernels.SA, _kernels.EXTEND, _kernels.EXTEND2,
+               _kernels.GLOBAL2)
+    launches = read_counts(sharded, "the reads mesh")
+    by_card = read_cards(sharded, mesh, "the reads mesh")
+    say("multi_card_mesh", ran_on=ran, shards=[str(d) for d in mesh],
+        identical=identical, real_size=real, launches=launches,
+        launches_by_card=by_card, seconds=time.perf_counter() - t0)
+
+    # the CLI's own --mesh auto (every card; one card: no mesh)
+    t1 = time.perf_counter()
+    path = os.path.join(out, "mesh_auto_se.sam")
+    err, dt = run_mem(["--mesh", "auto", ref, se], path)
+    if sam_body(path) != sam_body(os.path.join(DATA, "golden_se.sam")):
+        raise RuntimeError("--mesh auto: differs from golden_se.sam")
+    mesh_line = [ln for ln in err.splitlines() if "reads mesh over" in ln]
+
+    # pairs of --distributed processes: the goldens, then the 100k SE set
+    golden_names = {tag: read_names(sam_body(os.path.join(DATA, g)))
+                    for tag, _, g in GOLDENS}
+    dist_golden_s = distributed_pairs(
+        [(tag, args, DIST_CHUNK_BP["golden"]) for tag, args, _ in GOLDENS],
+        golden_names)
+    dist = {"goldens_identical_to_twins": [g for _, _, g in GOLDENS],
+            "golden_pairs_seconds": dist_golden_s}
+    if defaults:
+        args, _, n_reads = defaults["se"]
+        env = {"BWAMEM_TPU_CHUNK_BP": DIST_CHUNK_BP["se100k"]}
+        single = os.path.join(BIG, "single_se100k.sam")
+        _, single_s = cli_procs([args], [single], env)
+        pair_s = distributed_pairs(
+            [("se100k", args, DIST_CHUNK_BP["se100k"])],
+            {"se100k": read_names(sam_body(single))})
+        dist.update(se100k_reads=n_reads, chunk_bp=int(
+            DIST_CHUNK_BP["se100k"]), pair_seconds=pair_s,
+            single_seconds=single_s, pair_reads_per_s=n_reads / pair_s,
+            single_reads_per_s=n_reads / single_s,
+            ran_on=("2 processes on 2 cards" if n_cards >= 2
+                    else "2 processes on one card"))
+
+    # --profile in a fresh process: the SAM and a trace naming the run's
+    # kernels
+    pdir = os.path.join(out, "profile_se")
+    if os.path.isdir(pdir):
+        for f in os.listdir(pdir):
+            os.remove(os.path.join(pdir, f))
+    ppath = os.path.join(out, "profile_se.sam")
+    perr, prof_s = cli_procs([["--profile", pdir, ref, se]], [ppath], {})
+    if sam_body(ppath) != sam_body(os.path.join(DATA, "golden_se.sam")):
+        raise RuntimeError("--profile: differs from golden_se.sam")
+    traces = [f for f in os.listdir(pdir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise RuntimeError(f"--profile: expected one trace, got {traces}")
+    with open(os.path.join(pdir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    seen = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for k, sym in SYMBOLS.items():
+                if sym in e.get("name", ""):
+                    seen[k] = seen.get(k, 0) + 1
+    need = ("smem_superstep", "sa_walk", "extend_lr")
+    if not all(seen.get(k) for k in need):
+        raise RuntimeError(f"--profile: the trace names {seen}, not every "
+                           f"kernel of {need}")
+    say("multi_card_cli", mesh_auto_identical=True,
+        mesh_auto_line=mesh_line[0] if mesh_line else None,
+        distributed=dist, profile={"identical": True, "trace": traces[0],
+                                   "kernel_events": seen,
+                                   "seconds": prof_s},
+        seconds=time.perf_counter() - t1)
 
 
 if __name__ == "__main__":

@@ -159,6 +159,42 @@ def test_mem_cuda_matches_golden(cuda, data_dir, flags, reads, golden,
                                          _kernels.EXTEND))
 
 
+@pytest.mark.parametrize("chunk_bp", ["2000", "5000", "10000", "20000",
+                                      "40000"])
+@pytest.mark.parametrize("flags,reads,golden", [
+    ([], ["reads_se.fq"], "golden_se.sam"),
+    (["-a", "-M"], ["reads_se.fq"], "golden_se_aM.sam"),
+    ([], ["reads_1.fq", "reads_2.fq"], "golden_pe.sam"),
+], ids=["se", "se_aM", "pe"])
+def test_shard_stripes_hold_the_golden_names(cuda, data_dir, flags, reads,
+                                             golden, chunk_bp, capsys,
+                                             monkeypatch):
+    """`--shard 0/2` and `--shard 1/2` on the card (what each
+    `--distributed` rank runs) together hold exactly the golden's read
+    names at every chunk size: a stripe numbers its reads from 0, which
+    may move a hash tie to the other equal hit but adds or drops no
+    record.  The unsharded SE runs stay byte-identical to the golden at
+    that chunk size (PE estimates its insert sizes per chunk, so its
+    records follow the chunking)."""
+    from bwamem_tpu_torch import cli
+    monkeypatch.setenv("BWAMEM_TPU_CHUNK_BP", chunk_bp)
+    args = flags + [os.path.join(data_dir, "genome.fa")] + [
+        os.path.join(data_dir, r) for r in reads]
+
+    def records(extra):
+        assert cli.main_mem(["--device", "cuda"] + extra + args) == 0
+        return [ln for ln in capsys.readouterr().out.split("\n")
+                if ln and not ln.startswith("@")]
+    with open(os.path.join(data_dir, golden)) as f:
+        want = [ln for ln in f.read().split("\n")
+                if ln and not ln.startswith("@")]
+    pair = records(["--shard", "0/2"]) + records(["--shard", "1/2"])
+    name = lambda ls: sorted(ln.split("\t")[0] for ln in ls)  # noqa: E731
+    assert name(pair) == name(want)
+    if len(reads) == 1:
+        assert records([]) == want
+
+
 def _sw_lanes(seed, n, lq, lt):
     """n query/target pairs, half of them a mutated copy (with an indel)
     of the query in the target."""
@@ -781,3 +817,130 @@ def test_build_rows_kernel_at_the_edges(engine, kind, LQ, LT):
                        emulate.build_rows(*cpu_args)):
         assert torch.equal(a, b)
         assert torch.equal(a.cpu(), c)
+
+
+# ---- the reads mesh (bwamem_tpu_torch/parallel/mesh.py) on the card ----
+
+def _card_mesh(kind):
+    """Two shards: on card 0 and on the last card (two or more cards),
+    or both on card 0."""
+    n = torch.cuda.device_count()
+    if kind == "last_card":
+        if n < 2:
+            pytest.skip("needs two or more cards")
+        return (torch.device("cuda", 0), torch.device("cuda", n - 1))
+    return (torch.device("cuda", 0),) * 2
+
+
+def _query_group(data_dir, B, L=128):
+    from bwamem_tpu_torch.core.pipeline import encode_read
+    q = np.full((B, L), 4, np.int8)
+    qlen = np.zeros(B, np.int32)
+    for i, r in enumerate(_reads(data_dir, B)):
+        encode_read(r)
+        q[i, :len(r.seq_nt4)] = r.seq_nt4
+        qlen[i] = len(r.seq_nt4)
+    return _pk(q), qlen
+
+
+@pytest.mark.parametrize("kind", ["last_card", "one_card_twice"])
+@pytest.mark.parametrize("wrapper", ["superstep", "smem1", "sa_lookup",
+                                     "extend_lr", "extend2", "global2"])
+def test_sharded_wrapper_matches_one_card(engine, data_dir, wrapper, kind):
+    """Each ShardedKernels wrapper over two shards, its lanes given on the
+    host: every shard's kernel launches on its own card (the last one
+    too, made current around the launch) and the outputs equal the
+    unsharded wrapper's on card 0."""
+    from bwamem_tpu_torch.ops import _kernels, fm as tfm, ksw, smem
+    from bwamem_tpu_torch.parallel.mesh import ShardedKernels, shard_bounds
+    eng, _ = engine
+    mesh = _card_mesh(kind)
+    sk = ShardedKernels(mesh, eng.dfm)
+    dev = eng.device
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    mat = eng._mat_dev(_opt())
+    B = 256
+    qpk, qlen = _query_group(data_dir, B)
+    one = np.ones(B, np.int64)
+    act = np.ones(B, np.uint8)
+    sl, sw = np.full(B, 28, np.int32), np.full(B, 10, np.int32)
+    qb, tb, ql, tl, rng = _sw_lanes(9, B, 128, 544)
+    w = rng.integers(1, 100, B).astype(np.int32)
+    kernel = {"superstep": _kernels.SMEM, "smem1": _kernels.SMEM1,
+              "sa_lookup": _kernels.SA, "extend_lr": _kernels.EXTEND,
+              "extend2": _kernels.EXTEND2, "global2": _kernels.GLOBAL2}[wrapper]
+    n0, cards0 = kernel.launches, dict(kernel.by_card)
+    if wrapper == "superstep":
+        kw = dict(L=128, M=16, OUT_CAP=48, GCAP=12 * B // 2,
+                  KEY_CAP=8 * B // 2, SA_STEPS=1024)
+        got = sk.superstep(qpk, qlen, one, act, sl, sw, 19, 500, **kw)
+        assert kernel.launches == n0 + 2
+        cards = dict(kernel.by_card)
+        assert [b for b, _ in got] == shard_bounds(B, 2)
+        got = [res for _, res in got]
+        want = [smem.smem_superstep_sa(
+            eng.dfm, T(qpk[lo:hi]), T(qlen[lo:hi]), T(one[lo:hi]),
+            T(act[lo:hi]), T(sl[lo:hi]), T(sw[lo:hi]), 19, 500, **kw)
+            for lo, hi in shard_bounds(B, 2)]
+        parts = list(zip(*got))
+        got = [g for res in got for g in res]
+        want = [x for res in want for x in res]
+    else:
+        if wrapper == "smem1":
+            host = (qpk, qlen, np.zeros(B, np.int32), one, act, sl, sw)
+            got = sk.smem1(*host, L=128, M=16, M_OUT=12)
+            assert kernel.launches == n0 + 2
+            cards = dict(kernel.by_card)
+            want = smem.smem_iter_step(eng.dfm, *map(T, host), L=128, M=16,
+                                       M_OUT=12)
+        elif wrapper == "sa_lookup":
+            keys = rng.integers(0, eng.dfm.seq_len_int, 4096)
+            got = sk.sa_lookup(keys, 1024)
+            assert kernel.launches == n0 + 2
+            cards = dict(kernel.by_card)
+            want = tfm.sa_lookup(eng.dfm, T(keys), 1024)
+        elif wrapper == "extend_lr":
+            lq, lt = _pk(qb), _pk(tb)
+            z = np.zeros(B, np.int32)
+            host = (lq, lt, ql, tl, lq, lt, ql, tl, mat, 6, 1, 6, 1, 100, 5,
+                    5, 100, z + 20, z, z.astype(np.int64),
+                    z.astype(np.int64), ql, z + 19)
+            got = sk.extend_lr(*host, LQ=128, LT=544)
+            assert kernel.launches == n0 + 2
+            cards = dict(kernel.by_card)
+            want = ksw.ksw_extend_lr_batched(
+                *(T(a) if isinstance(a, np.ndarray) else a for a in host),
+                LQ=128, LT=544)
+        elif wrapper == "extend2":
+            host = (_pk(qb), _pk(tb), ql, tl, mat, 6, 1, 6, 1, w,
+                    np.full(B, 5, np.int32), 100,
+                    rng.integers(1, 120, B).astype(np.int32))
+            got = sk.extend2(*host, LQ=128, LT=544)
+            assert kernel.launches == n0 + 2
+            cards = dict(kernel.by_card)
+            want = ksw.ksw_extend2_batched(
+                *(T(a) if isinstance(a, np.ndarray) else a for a in host),
+                LQ=128, LT=544)
+        else:
+            gq, gt, gql, gtl, _ = _sw_lanes(10, B, 128, 160)
+            gtl = np.minimum(gtl, gql + 20).astype(np.int32)
+            host = (_pk(gq), _pk(gt), gql, gtl, mat, 6, 1, 6, 1, w)
+            got = sk.global2(*host, LQ=128, LT=160)
+            assert kernel.launches == n0 + 2
+            cards = dict(kernel.by_card)
+            want = ksw.ksw_global2_batched(
+                *(T(a) if isinstance(a, np.ndarray) else a for a in host),
+                LQ=128, LT=160)
+        parts = [g.parts for g in got]
+        got = [g.cpu() for g in got]
+    torch.cuda.synchronize()
+    for p in parts:
+        assert [t.device for t in p] == list(mesh)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    # each shard's launch counted on its own card, where it launched
+    per_card = {}
+    for d in mesh:
+        per_card[d.index] = per_card.get(d.index, 0) + 1
+    delta = {c: n - cards0.get(c, 0) for c, n in cards.items()}
+    assert {c: n for c, n in delta.items() if n} == per_card

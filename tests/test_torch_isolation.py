@@ -51,6 +51,15 @@ def _forbidden(name: str) -> bool:
     return name.split(".")[0] in FORBIDDEN
 
 
+def test_the_walk_covers_every_subpackage():
+    """The parallel/ sub-package (the reads mesh, the multi-process
+    mode) is walked like the rest."""
+    got = _sources()
+    assert {"bwamem_tpu_torch/parallel/mesh.py",
+            "bwamem_tpu_torch/parallel/multihost.py",
+            "bwamem_tpu_torch/ops/engine.py", "chip_smoke.py"} <= set(got)
+
+
 def test_the_walk_sees_nested_imports():
     tree = ast.parse("def f():\n    if 1:\n        from bwamem_tpu.core "
                      "import sam\n    import jax.numpy\n"

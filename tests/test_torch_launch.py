@@ -90,14 +90,17 @@ def _cuda_guard(fn):
     return None
 
 
-def wrapper_syncs(trees, module):
+def wrapper_syncs(trees, module, roots=None):
     """The syncing calls (function, line, text) of every *_cuda function
-    of trees[module] and of the functions it calls, transitively; a host
-    check's reads after its is_cuda guard do not count."""
+    of trees[module] (or of the functions named in roots) and of the
+    functions it calls, transitively; a host check's reads after its
+    is_cuda guard do not count."""
     defs = {m: {n.name: n for n in ast.walk(t)
                 if isinstance(n, ast.FunctionDef)}
             for m, t in trees.items()}
-    todo = [(module, name) for name in defs[module] if name.endswith("_cuda")]
+    todo = [(module, name) for name in defs[module]
+            if (name in roots if roots is not None
+                else name.endswith("_cuda"))]
     seen = set()
     while todo:
         key = todo.pop()
@@ -162,6 +165,29 @@ def test_a_host_check_without_its_guard_is_a_sync():
 def test_no_cuda_wrapper_syncs(module):
     bad = wrapper_syncs(_ops_trees(), module[:-3])
     assert not bad, f"{module}: a CUDA wrapper reads the device: {bad}"
+
+
+MESH = os.path.join(ROOT, "bwamem_tpu_torch", "parallel", "mesh.py")
+# the sharded entry points: every method of ShardedKernels and the
+# functions that return sharded callables
+SHARDED_ROOTS = ("sharded_smem1", "sharded_sa_lookup")
+
+
+def test_no_sharded_wrapper_syncs():
+    """The reads mesh's wrappers (bwamem_tpu_torch/parallel/mesh.py) read
+    no device value on the host before or between their shards'
+    launches, at any depth of what they call in their module."""
+    with open(MESH) as fh:
+        tree = ast.parse(fh.read(), MESH)
+    cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+               and n.name == "ShardedKernels")
+    roots = [f.name for f in cls.body if isinstance(f, ast.FunctionDef)]
+    roots += list(SHARDED_ROOTS)
+    assert {"superstep", "sa_lookup", "extend_lr", "extend2",
+            "global2"} <= set(roots)
+    bad = wrapper_syncs({"mesh": tree, "_kernels": _ops_trees()["_kernels"]},
+                        "mesh", roots=roots)
+    assert not bad, f"a sharded wrapper reads the device: {bad}"
 
 
 def test_the_host_checks_are_reached():
@@ -323,8 +349,8 @@ def test_edge_lanes_pass_the_window_check(data_dir):
 
 def test_launch_counts_passes_the_stream_and_raises(monkeypatch):
     """The launch path calls the entry once with the plain ints and the
-    card's stream handle, counts the launch (and its bucket) only when
-    the entry returns 0, and raises otherwise."""
+    card's stream handle, counts the launch (on its card, and its bucket)
+    only when the entry returns 0, and raises otherwise."""
     k = _kernels.Kernel("probe", "src", "tpu", "bm_probe")
     calls = []
 
@@ -333,13 +359,55 @@ def test_launch_counts_passes_the_stream_and_raises(monkeypatch):
         return args[0]
     k._fn = entry
     monkeypatch.setattr(_kernels, "_raw_stream", lambda idx: 1000 + idx)
+    monkeypatch.setattr(_kernels, "_current_card", lambda: 3)
     k.launch(3, 0, 11, bucket="LQ128")
     assert calls == [(0, 11, 1003)]
     assert k.launches == 1 and k.buckets == {"probe_LQ128": 1}
+    assert k.by_card == {3: 1}
     with pytest.raises(RuntimeError, match="probe launch failed: CUDA "
                                            "error 700"):
-        k.launch(0, 700)
-    assert k.launches == 1
+        k.launch(3, 700)
+    assert k.launches == 1 and k.by_card == {3: 1}
+
+
+def test_launch_makes_the_tensors_card_current(monkeypatch):
+    """A launch on card k runs its entry with card k current (a
+    ``<<<...>>>`` launch goes to the current card), restores the card
+    that was current, also when the launch fails, and sets nothing when
+    card k is current already."""
+    k = _kernels.Kernel("probe", "src", "tpu", "bm_probe")
+    current = [0]
+    log = []
+
+    def enter(idx):
+        log.append(("enter", idx))
+        prev, current[0] = current[0], idx
+        return prev
+
+    def leave(prev):
+        log.append(("leave", prev))
+        current[0] = prev
+
+    def entry(*args):
+        log.append(("entry", current[0], args[-1]))
+        return args[0]
+    k._fn = entry
+    monkeypatch.setattr(_kernels, "_raw_stream", lambda idx: 1000 + idx)
+    monkeypatch.setattr(_kernels, "_current_card", lambda: current[0])
+    monkeypatch.setattr(_kernels, "_enter_card", enter)
+    monkeypatch.setattr(_kernels, "_leave_card", leave)
+    k.launch(3, 0)
+    assert log == [("enter", 3), ("entry", 3, 1003), ("leave", 0)]
+    assert current[0] == 0 and k.launches == 1
+    log.clear()
+    k.launch(0, 0)
+    assert log == [("entry", 0, 1000)]
+    log.clear()
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        k.launch(1, 700)
+    assert log == [("enter", 1), ("entry", 1, 1001), ("leave", 0)]
+    assert current[0] == 0 and k.launches == 2
+    assert k.by_card == {3: 1, 0: 1}
 
 
 def test_card_of_refuses_a_cpu_tensor():

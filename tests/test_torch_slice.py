@@ -2,7 +2,7 @@
 cpu, the kernels' plain versions): byte-identical to the goldens (the
 -v 4/-v 5 traces included), to the JAX engine and to the host engine (a
 seed-rich chunk, a set chunk size); the package imports no JAX; the
-options not ported yet refuse instead of serving quietly."""
+option not ported yet refuses instead of serving quietly."""
 
 import io
 import json
@@ -103,11 +103,12 @@ def test_package_imports_no_jax():
 
 
 def test_unported_routes_refuse(data_dir):
-    """The options that are not ported are refused (the CLI exits 1)."""
+    """The options that are not ported are refused (the CLI exits 1):
+    --shard-tables, and the JAX package's --engine and devices."""
     from bwamem_tpu_torch import cli
     ref = os.path.join(data_dir, "genome.fa")
     fq = os.path.join(data_dir, "reads_se1.fq")
-    for opt in (["--mesh", "2"], ["--profile", "x"], ["--engine", "jax"],
+    for opt in (["--shard-tables"], ["--engine", "jax"],
                 ["--device", "tpu"]):
         assert run_mem(cli, opt + [ref, fq])[0] == 1
 

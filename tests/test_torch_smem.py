@@ -237,6 +237,7 @@ def test_round_route_streams_match_host_iterator(small_fm, monkeypatch, L):
     from bwamem_tpu.config import MemOptions
     from bwamem_tpu.oracle.smem import SmemIterator
     from bwamem_tpu_torch.ops.seeding import BatchedSeeder
+    from bwamem_tpu_torch.parallel.mesh import ShardedKernels
     fwd, fm, _, t = small_fm
     monkeypatch.setenv("BWAMEM_TPU_SMEM_MOUT", "2")
     monkeypatch.setenv("BWAMEM_TPU_MIN_SEED_WAVE", "8")
@@ -244,7 +245,8 @@ def test_round_route_streams_match_host_iterator(small_fm, monkeypatch, L):
     timer = _timer()
     queries = [q.astype(np.uint8) for q in _bucket_queries(fwd, L, 40,
                                                            L + 1)]
-    seeder = BatchedSeeder(t, fm, timer, L=L)
+    seeder = BatchedSeeder(t, fm, timer, ShardedKernels((t.device,), t),
+                           L=L)
     streams = seeder.interval_streams(opt, queries)
     n_full = 0
     for q, got in zip(queries, streams):
