@@ -13,15 +13,23 @@ sets the chunk size in bases, as in ``bwamem_tpu.cli``.
                            cards (auto: all), the index on each
                            (parallel/mesh.py); under --device cpu, N CPU
                            shards
+    --shard-tables         with --mesh of two or more: split the occ table
+                           and the sampled SA by rows over the mesh's
+                           cards instead, 1/N on each, the kernels reading
+                           a peer card's rows over NVLink (peer access
+                           between every pair of the cards, or the run
+                           fails); for indexes larger than one card holds.
+                           Without such a mesh it changes nothing; with
+                           --distributed it is refused (the processes
+                           share no table)
     --distributed C,N,I    process I of N, rendezvous at C (host:port):
                            --shard I/N by default, the engine on card
                            I mod the cards there are (parallel/multihost.py)
     --profile DIR          a torch.profiler trace of the run into DIR
 
-Only ``--shard-tables`` (the tables row-sharded over the mesh) is not
-ported yet and is refused.  Every other bwa command runs without JAX in
-``bwamem_tpu.cli`` already.  The port imports nothing of that package:
-the host modules it needs are its own copies.
+Every other bwa command runs without JAX in ``bwamem_tpu.cli`` already.
+The port imports nothing of that package: the host modules it needs are
+its own copies.
 """
 
 import json
@@ -30,7 +38,6 @@ import os
 import sys
 
 PACKAGE_VERSION = "0.7.8-r455"  # output-compat version (top.c:10)
-_REFUSED = ("shard-tables",)
 
 
 def set_rg(s: str):
@@ -88,7 +95,7 @@ def main_mem(argv):
     verbose = 3
     device = "cuda"
     shard_spec = None
-    mesh_spec = dist_spec = profile_dir = None
+    mesh_spec = dist_spec = profile_dir = shard_tables = None
     try:
         opts, args = _getopt.getopt(
             argv, "epaMCSPHk:c:v:s:r:t:b:R:A:B:O:E:U:w:L:d:T:Q:D:m:I:",
@@ -207,10 +214,8 @@ def main_mem(argv):
             dist_spec = (parts[0], int(parts[1]), int(parts[2]))
         elif c == "profile":
             profile_dir = val
-        elif c in _REFUSED:
-            sys.stderr.write(f"[E::main_mem] --{c} is not ported to the "
-                             f"PyTorch package yet (see ROADMAP.md)\n")
-            return 1
+        elif c == "shard-tables":   # the tables split over the --mesh
+            shard_tables = True
         elif c == "H":
             pass
         else:
@@ -223,6 +228,10 @@ def main_mem(argv):
     if device not in ("cuda", "cpu"):
         sys.stderr.write(f"[E::main_mem] unknown --device '{device}' "
                          f"(expected cuda|cpu)\n")
+        return 1
+    if shard_tables and dist_spec is not None:
+        sys.stderr.write("[E::main_mem] --shard-tables with --distributed "
+                         "is not ported: the processes share no table\n")
         return 1
     opt.rescale_for_a()
     opt.mat = fill_scmat(opt.a, opt.b)
@@ -270,7 +279,11 @@ def main_mem(argv):
                                  % len(mesh))
             else:
                 mesh = None
-        engine = TorchSeedingEngine(fm, device, mesh=mesh)
+        engine = TorchSeedingEngine(fm, device, mesh=mesh,
+                                    shard_tables=shard_tables)
+        if engine.shard_tables:
+            sys.stderr.write("[M::main_mem] occ table and SA split over %d "
+                             "devices\n" % len(mesh))
 
         reader = make_chunk_reader(args[1],
                                    args[2] if len(args) > 2 else None)

@@ -17,7 +17,9 @@
 // popcount and the checkpoint sum, on the narrow (n_blocks, 16) table
 // through fm_occ4 (fm.cuh), the device function that the superstep and
 // the SA walk share; a key past the table gives zeros instead of a read
-// out of bounds.  Plain version: ops/fm.py occ4.
+// out of bounds.  Plain version: ops/fm.py occ4.  It reads a split table
+// (mem --shard-tables) through the same fm.cuh row lookup as the
+// superstep; g++ builds bm_occ4_host from the same source.
 //
 // What bounds them on an H100: one random 64-byte row per id from device
 // memory (or L2, for tables under 50 MB); no arithmetic to speak of.
@@ -26,6 +28,8 @@
 #include "fm.cuh"
 
 namespace {
+
+const int64_t kNoL2[5] = {0, 0, 0, 0, 0};  // occ4 reads no L2 nor seq_len
 
 BM_HD void gather_row(const int32_t* table, int64_t n_rows, int W,
                       const int64_t* ids, int64_t B, int transpose,
@@ -42,7 +46,8 @@ BM_HD void gather_row(const int32_t* table, int64_t n_rows, int W,
   }
 }
 
-BM_HD void occ4_key(const FmView& f, int64_t n_blocks, const int64_t* keys,
+template <class FV>
+BM_HD void occ4_key(const FV& f, int64_t n_blocks, const int64_t* keys,
                     int64_t* out, int64_t i) {
   const int64_t k = keys[i];
   int64_t cnt[4] = {0, 0, 0, 0};
@@ -72,7 +77,8 @@ __global__ void gather_rows_kernel(const int32_t* __restrict__ table,
   gather_row(table, n_rows, W, ids, B, transpose, out, b);
 }
 
-__global__ void occ4_kernel(FmView f, int64_t n_blocks,
+template <class FV>
+__global__ void occ4_kernel(FV f, int64_t n_blocks,
                             const int64_t* __restrict__ keys, int64_t n,
                             int64_t* __restrict__ out) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x)
@@ -100,20 +106,54 @@ extern "C" int bm_gather_rows(const void* table, int64_t n_rows, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bm_occ4(const void* blocks, int64_t n_blocks, int64_t primary,
-                       const void* keys, int64_t n, void* out,
-                       void* stream) {
-  FmView f;
-  f.blocks = static_cast<const uint32_t*>(blocks);
-  f.primary = primary;
-  f.seq_len = 0;
-  for (int c = 0; c < 5; ++c) f.L2[c] = 0;  // occ4 reads neither
+// occ: the n_parts parts' addresses (a host array; one part is the whole
+// table), part_rows the rows of each part but the last.
+extern "C" int bm_occ4(const void* const* occ, int n_parts, int64_t part_rows,
+                       int64_t n_blocks, int64_t primary, const void* keys,
+                       int64_t n, void* out, void* stream) {
   const int threads = 256;
-  if (n > 0)
-    occ4_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
-                  threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        f, n_blocks, static_cast<const int64_t*>(keys), n,
-        static_cast<int64_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return with_fm_view(occ, n_parts, part_rows, primary, 0, kNoL2,
+                      [&](const auto& f) {
+    if (n > 0)
+      occ4_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
+                    threads, 0, static_cast<cudaStream_t>(stream)>>>(
+          f, n_blocks, static_cast<const int64_t*>(keys), n,
+          static_cast<int64_t*>(out));
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+#else
+// The host emulation: the same arguments on host memory, no stream.
+extern "C" int bm_occ4_host(const void* const* occ, int n_parts,
+                            int64_t part_rows, int64_t n_blocks,
+                            int64_t primary, const void* keys, int64_t n,
+                            void* out) {
+  return with_fm_view(occ, n_parts, part_rows, primary, 0, kNoL2,
+                      [&](const auto& f) {
+    for (int64_t i = 0; i < n; ++i)
+      occ4_key(f, n_blocks, static_cast<const int64_t*>(keys),
+               static_cast<int64_t*>(out), i);
+    return 0;
+  });
+}
+
+// The part lookup alone (fm.cuh row_at), for its tests: the part and the
+// offset in it of each row r[i] of a table cut into n_parts parts of rows
+// rows.  Returns kBadParts where make_parts refuses them.
+extern "C" int bm_part_of_host(int64_t rows, int n_parts, const void* r,
+                               int64_t n, void* part, void* off) {
+  const void* base[kMaxParts];
+  for (int i = 0; i < kMaxParts; ++i)   // part i at address i << 56
+    base[i] = reinterpret_cast<const void*>(static_cast<uintptr_t>(i) << 56);
+  Parts p;
+  if (!make_parts(&p, base, n_parts, rows)) return kBadParts;
+  for (int64_t i = 0; i < n; ++i) {
+    const uintptr_t at = reinterpret_cast<uintptr_t>(
+        row_at(p, static_cast<const uint64_t*>(r)[i], 1));
+    static_cast<int32_t*>(part)[i] = static_cast<int32_t>(at >> 56);
+    static_cast<int64_t*>(off)[i] =
+        static_cast<int64_t>(at & ((uintptr_t{1} << 56) - 1));
+  }
+  return 0;
 }
 #endif

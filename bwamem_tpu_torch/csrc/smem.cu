@@ -52,6 +52,12 @@
 // design and the same bound; each step pays a launch and a fetch, which
 // is what the superstep removes.
 //
+// The table may be split by rows over several cards (mem --shard-tables):
+// every function takes the index view as a template parameter (fm.cuh),
+// FmView for the whole table or FmSplitView for its parts, and each entry
+// launches the instantiation that its count of parts asks for; nothing
+// else in the superstep differs.
+//
 // On the host, g++ builds the same source with a group's threads as
 // arrays (bm_smem_superstep_host, bm_smem_iter_step_host).
 #include "fm.cuh"
@@ -87,8 +93,8 @@ BM_HD int qbase(const int8_t* row, int i) {
 // One bwt_smem1 pass from position x of the packed query q, by the lanes
 // of tm.  mem[] receives the SMEMs in append order (qb descending);
 // returns false when a buffer of M entries overflows.
-template <int MAXM, class TM>
-BM_HD bool smem1_group(const TM& tm, const FmView& f, const int8_t* q,
+template <int MAXM, class TM, class FV>
+BM_HD bool smem1_group(const TM& tm, const FV& f, const int8_t* q,
                        int qlen, int x, int64_t min_intv, int M, Cur* bufa,
                        Cur* bufb, Mem* mem, int* n_mem, int* ret) {
   constexpr int NL = TM::NL, G = TM::kG;
@@ -235,9 +241,9 @@ BM_HD int longest_mem(const Mem* mem, int n, int* best_len) {
 
 // The whole iterator for read b, by the lanes of tm.  Outputs
 // o0/os/oqb/oqe [B, out_cap], n_out [B], over [B].
-template <int MAXM, class TM>
+template <int MAXM, class TM, class FV>
 BM_HD void superstep_group(const TM& tm, GroupBuf<MAXM>& buf,
-                           const FmView& f, const int8_t* q_pk, int L,
+                           const FV& f, const int8_t* q_pk, int L,
                            const int32_t* qlen_a, const int64_t* min_intv_a,
                            const uint8_t* active, const int32_t* split_len,
                            const int32_t* split_width, int M, int out_cap,
@@ -331,8 +337,8 @@ struct PassOut {
 // ambiguous base does; an overflowing lane (a buffer of M entries) is
 // flagged and otherwise written as an inactive one.  Returns the count
 // of SMEMs, -1 on overflow.
-template <int MAXM, class TM>
-BM_HD int pass_group(const TM& tm, GroupBuf<MAXM>& buf, const FmView& f,
+template <int MAXM, class TM, class FV>
+BM_HD int pass_group(const TM& tm, GroupBuf<MAXM>& buf, const FV& f,
                      const int8_t* q, int qlen, bool act, int x,
                      int64_t min_intv, int M, int m_out, const PassOut& o,
                      int b) {
@@ -370,9 +376,9 @@ BM_HD int pass_group(const TM& tm, GroupBuf<MAXM>& buf, const FmView& f,
 // One iterator step for read b (bwamem_tpu/ops/smem.py smem_iter_step):
 // pass 1 from x[b]; the re-seeding test on its longest SMEM; pass 2 from
 // that SMEM's middle with min_intv = its size + 1 where the test holds.
-template <int MAXM, class TM>
+template <int MAXM, class TM, class FV>
 BM_HD void iter_step_group(const TM& tm, GroupBuf<MAXM>& buf,
-                           const FmView& f, const int8_t* q_pk, int L,
+                           const FV& f, const int8_t* q_pk, int L,
                            const int32_t* qlen_a, const int32_t* x_a,
                            const int64_t* min_intv_a, const uint8_t* active,
                            const int32_t* split_len,
@@ -401,16 +407,6 @@ BM_HD void iter_step_group(const TM& tm, GroupBuf<MAXM>& buf,
   pass_group<MAXM>(tm, buf, f, q, qlen, need2, x2, mi2, M, m_out, o2, b);
 }
 
-FmView fm_view(const void* blocks, int64_t primary, int64_t seq_len,
-               const void* L2) {
-  FmView f;
-  f.blocks = static_cast<const uint32_t*>(blocks);
-  f.primary = primary;
-  f.seq_len = seq_len;
-  for (int c = 0; c < 5; ++c) f.L2[c] = static_cast<const int64_t*>(L2)[c];
-  return f;
-}
-
 PassOut pass_out(void* const* p) {
   PassOut o;
   o.ret = static_cast<int32_t*>(p[0]);
@@ -427,9 +423,9 @@ PassOut pass_out(void* const* p) {
 #ifdef __CUDACC__
 constexpr int kReadsPerBlock = kBlock / kGroup;
 
-template <int MAXM>
+template <int MAXM, class FV>
 __global__ void __launch_bounds__(kBlock)
-    superstep_kernel(FmView f, const int8_t* q_pk, int L,
+    superstep_kernel(FV f, const int8_t* q_pk, int L,
                      const int32_t* qlen, const int64_t* min_intv,
                      const uint8_t* active, const int32_t* split_len,
                      const int32_t* split_width, int M, int out_cap, int B,
@@ -444,9 +440,9 @@ __global__ void __launch_bounds__(kBlock)
                         o0, os, oqb, oqe, n_out, over, b);
 }
 
-template <int MAXM>
+template <int MAXM, class FV>
 __global__ void __launch_bounds__(kBlock)
-    iter_step_kernel(FmView f, const int8_t* q_pk, int L,
+    iter_step_kernel(FV f, const int8_t* q_pk, int L,
                      const int32_t* qlen, const int32_t* x,
                      const int64_t* min_intv, const uint8_t* active,
                      const int32_t* split_len, const int32_t* split_width,
@@ -465,19 +461,24 @@ __global__ void __launch_bounds__(kBlock)
 }  // namespace
 
 #ifdef __CUDACC__
-// A group of kGroup threads per read, kBlock threads per block; the
-// table must be 16-byte aligned.
+// A group of kGroup threads per read, kBlock threads per block; every
+// part of the table must be 16-byte aligned.  occ: the n_parts parts'
+// addresses (a host array), part_rows the rows of each but the last; one
+// part is the whole table.
 extern "C" int bm_smem_superstep(
-    const void* blocks, int64_t primary, int64_t seq_len, const void* L2,
-    const void* q_pk, int L, const void* qlen, const void* min_intv,
-    const void* active, const void* split_len, const void* split_width,
-    int M, int out_cap, int B, void* o0, void* os, void* oqb, void* oqe,
-    void* n_out, void* over, void* stream) {
-  const FmView f = fm_view(blocks, primary, seq_len, L2);
+    const void* const* occ, int n_parts, int64_t part_rows, int64_t primary,
+    int64_t seq_len, const void* L2, const void* q_pk, int L,
+    const void* qlen, const void* min_intv, const void* active,
+    const void* split_len, const void* split_width, int M, int out_cap,
+    int B, void* o0, void* os, void* oqb, void* oqe, void* n_out,
+    void* over, void* stream) {
   const int grid = (B + kReadsPerBlock - 1) / kReadsPerBlock;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_fm_view(occ, n_parts, part_rows, primary, seq_len, L2,
+                      [&](const auto& f) {
+    using FV = std::decay_t<decltype(f)>;
 #define BM_LAUNCH(MM)                                                      \
-  superstep_kernel<MM><<<grid, kBlock, 0, st>>>(                           \
+  superstep_kernel<MM, FV><<<grid, kBlock, 0, st>>>(                       \
       f, static_cast<const int8_t*>(q_pk), L,                              \
       static_cast<const int32_t*>(qlen),                                   \
       static_cast<const int64_t*>(min_intv),                               \
@@ -487,31 +488,35 @@ extern "C" int bm_smem_superstep(
       static_cast<int64_t*>(o0), static_cast<int64_t*>(os),                \
       static_cast<int32_t*>(oqb), static_cast<int32_t*>(oqe),              \
       static_cast<int32_t*>(n_out), static_cast<uint8_t*>(over))
-  if (B > 0) {
-    if (M <= 16) {
-      BM_LAUNCH(16);
-    } else {
-      BM_LAUNCH(32);
+    if (B > 0) {
+      if (M <= 16) {
+        BM_LAUNCH(16);
+      } else {
+        BM_LAUNCH(32);
+      }
     }
-  }
 #undef BM_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // out1/out2: the eight pointers of a PassOut each (ret, n, x0, x1, s, qb,
 // qe, over), as a host array of device pointers.
 extern "C" int bm_smem_iter_step(
-    const void* blocks, int64_t primary, int64_t seq_len, const void* L2,
-    const void* q_pk, int L, const void* qlen, const void* x,
-    const void* min_intv, const void* active, const void* split_len,
-    const void* split_width, int M, int m_out, int B, void* const* out1,
-    void* need2, void* const* out2, void* stream) {
-  const FmView f = fm_view(blocks, primary, seq_len, L2);
+    const void* const* occ, int n_parts, int64_t part_rows, int64_t primary,
+    int64_t seq_len, const void* L2, const void* q_pk, int L,
+    const void* qlen, const void* x, const void* min_intv,
+    const void* active, const void* split_len, const void* split_width,
+    int M, int m_out, int B, void* const* out1, void* need2,
+    void* const* out2, void* stream) {
   const PassOut o1 = pass_out(out1), o2 = pass_out(out2);
   const int grid = (B + kReadsPerBlock - 1) / kReadsPerBlock;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_fm_view(occ, n_parts, part_rows, primary, seq_len, L2,
+                      [&](const auto& f) {
+    using FV = std::decay_t<decltype(f)>;
 #define BM_LAUNCH(MM)                                                      \
-  iter_step_kernel<MM><<<grid, kBlock, 0, st>>>(                           \
+  iter_step_kernel<MM, FV><<<grid, kBlock, 0, st>>>(                       \
       f, static_cast<const int8_t*>(q_pk), L,                              \
       static_cast<const int32_t*>(qlen), static_cast<const int32_t*>(x),   \
       static_cast<const int64_t*>(min_intv),                               \
@@ -519,62 +524,94 @@ extern "C" int bm_smem_iter_step(
       static_cast<const int32_t*>(split_len),                              \
       static_cast<const int32_t*>(split_width), M, m_out, B, o1,           \
       static_cast<uint8_t*>(need2), o2)
-  if (B > 0) {
-    if (M <= 16) {
-      BM_LAUNCH(16);
-    } else {
-      BM_LAUNCH(32);
+    if (B > 0) {
+      if (M <= 16) {
+        BM_LAUNCH(16);
+      } else {
+        BM_LAUNCH(32);
+      }
+    }
+#undef BM_LAUNCH
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// Peer access from card dev to card peer's memory, so that a kernel on
+// dev loads the rows of a table part that lies on peer.  0 once enabled
+// (also where it was already), -1 where the pair cannot reach each other,
+// else the CUDA error.  Access is one-way: enable both directions.
+extern "C" int bm_enable_peer(int dev, int peer) {
+  int can = 0;
+  cudaError_t e = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!can) return -1;
+  int prev = 0;
+  e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaSetDevice(dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();  // clear it: already enabled is success
+      e = cudaSuccess;
     }
   }
-#undef BM_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t back = cudaSetDevice(prev);
+  return static_cast<int>(e != cudaSuccess ? e : back);
 }
 #else
 // The host emulation (g++): the same arguments on host memory, without
-// the stream.  Returns 0.
+// the stream.  Returns 0, kBadParts for parts it does not take.
 extern "C" int bm_smem_superstep_host(
-    const void* blocks, int64_t primary, int64_t seq_len, const void* L2,
-    const void* q_pk, int L, const void* qlen, const void* min_intv,
-    const void* active, const void* split_len, const void* split_width,
-    int M, int out_cap, int B, void* o0, void* os, void* oqb, void* oqe,
-    void* n_out, void* over) {
-  const FmView f = fm_view(blocks, primary, seq_len, L2);
-  const HostTeam<kGroup> tm;
-  GroupBuf<32> buf;
-  for (int b = 0; b < B; ++b)
-    superstep_group<32>(tm, buf, f, static_cast<const int8_t*>(q_pk), L,
-                        static_cast<const int32_t*>(qlen),
-                        static_cast<const int64_t*>(min_intv),
-                        static_cast<const uint8_t*>(active),
-                        static_cast<const int32_t*>(split_len),
-                        static_cast<const int32_t*>(split_width), M, out_cap,
-                        static_cast<int64_t*>(o0), static_cast<int64_t*>(os),
-                        static_cast<int32_t*>(oqb),
-                        static_cast<int32_t*>(oqe),
-                        static_cast<int32_t*>(n_out),
-                        static_cast<uint8_t*>(over), b);
-  return 0;
+    const void* const* occ, int n_parts, int64_t part_rows, int64_t primary,
+    int64_t seq_len, const void* L2, const void* q_pk, int L,
+    const void* qlen, const void* min_intv, const void* active,
+    const void* split_len, const void* split_width, int M, int out_cap,
+    int B, void* o0, void* os, void* oqb, void* oqe, void* n_out,
+    void* over) {
+  return with_fm_view(occ, n_parts, part_rows, primary, seq_len, L2,
+                      [&](const auto& f) {
+    const HostTeam<kGroup> tm;
+    GroupBuf<32> buf;
+    for (int b = 0; b < B; ++b)
+      superstep_group<32>(tm, buf, f, static_cast<const int8_t*>(q_pk), L,
+                          static_cast<const int32_t*>(qlen),
+                          static_cast<const int64_t*>(min_intv),
+                          static_cast<const uint8_t*>(active),
+                          static_cast<const int32_t*>(split_len),
+                          static_cast<const int32_t*>(split_width), M,
+                          out_cap, static_cast<int64_t*>(o0),
+                          static_cast<int64_t*>(os),
+                          static_cast<int32_t*>(oqb),
+                          static_cast<int32_t*>(oqe),
+                          static_cast<int32_t*>(n_out),
+                          static_cast<uint8_t*>(over), b);
+    return 0;
+  });
 }
 
 extern "C" int bm_smem_iter_step_host(
-    const void* blocks, int64_t primary, int64_t seq_len, const void* L2,
-    const void* q_pk, int L, const void* qlen, const void* x,
-    const void* min_intv, const void* active, const void* split_len,
-    const void* split_width, int M, int m_out, int B, void* const* out1,
-    void* need2, void* const* out2) {
-  const FmView f = fm_view(blocks, primary, seq_len, L2);
+    const void* const* occ, int n_parts, int64_t part_rows, int64_t primary,
+    int64_t seq_len, const void* L2, const void* q_pk, int L,
+    const void* qlen, const void* x, const void* min_intv,
+    const void* active, const void* split_len, const void* split_width,
+    int M, int m_out, int B, void* const* out1, void* need2,
+    void* const* out2) {
   const PassOut o1 = pass_out(out1), o2 = pass_out(out2);
-  const HostTeam<kGroup> tm;
-  GroupBuf<32> buf;
-  for (int b = 0; b < B; ++b)
-    iter_step_group<32>(tm, buf, f, static_cast<const int8_t*>(q_pk), L,
-                        static_cast<const int32_t*>(qlen),
-                        static_cast<const int32_t*>(x),
-                        static_cast<const int64_t*>(min_intv),
-                        static_cast<const uint8_t*>(active),
-                        static_cast<const int32_t*>(split_len),
-                        static_cast<const int32_t*>(split_width), M, m_out,
-                        o1, static_cast<uint8_t*>(need2), o2, b);
-  return 0;
+  return with_fm_view(occ, n_parts, part_rows, primary, seq_len, L2,
+                      [&](const auto& f) {
+    const HostTeam<kGroup> tm;
+    GroupBuf<32> buf;
+    for (int b = 0; b < B; ++b)
+      iter_step_group<32>(tm, buf, f, static_cast<const int8_t*>(q_pk), L,
+                          static_cast<const int32_t*>(qlen),
+                          static_cast<const int32_t*>(x),
+                          static_cast<const int64_t*>(min_intv),
+                          static_cast<const uint8_t*>(active),
+                          static_cast<const int32_t*>(split_len),
+                          static_cast<const int32_t*>(split_width), M, m_out,
+                          o1, static_cast<uint8_t*>(need2), o2, b);
+    return 0;
+  });
 }
 #endif

@@ -40,6 +40,10 @@ L2.  The variants run on the card unless --device cpu is given; on the
 CPU the plain versions run at the size asked for and their times are
 `cpu_ms`, host times that say nothing of the card.
 
+An occ table split by rows (ops/fm.py SplitTable, the tables of `mem
+--shard-tables`) may be handed to Bench.gather in place of a tensor: it
+runs the occ4 variant only, the others being gathers of a tensor.
+
 run() takes a check callback, check(kernel, line, out, args, library),
 called once for each kernel call the variants make: the kernel's name,
 the line printed for the call, the call's output and the arguments it
@@ -56,6 +60,7 @@ import numpy as np
 import torch
 
 from .ops import occ
+from .ops.fm import SplitTable
 
 L2_BYTES = 50 * 10 ** 6       # the H100's L2
 LANES, M = 8192, 16           # the main path's lanes and SMEM width
@@ -165,10 +170,12 @@ class Bench:
     def line(self, variant: str, table=None, ms=None, **kv) -> dict:
         d = {"variant": variant, **self.info}
         if table is not None:
-            nbytes = table.numel() * table.element_size()
+            nbytes = table.shape[0] * table.shape[1] * table.element_size()
             d.update(table_rows=int(table.shape[0]),
                      width=int(table.shape[1]), table_bytes=int(nbytes),
                      above_l2=nbytes > L2_BYTES)
+            if isinstance(table, SplitTable):
+                d["parts"] = [str(p.device) for p in table.parts]
         if ms is not None:
             d["ms" if self.device.type == "cuda" else "cpu_ms"] = ms
         d.update(kv)
@@ -195,7 +202,8 @@ class Bench:
         """Each gather variant at each id count over one table.  For occ4
         the table is an occ table; a synthetic one holds 128 x n_rows
         positions with primary at the middle.  The first occ4 keys are
-        -1, 0, primary - 1, primary and seq_len - 1."""
+        -1, 0, primary - 1, primary and seq_len - 1.  A SplitTable runs
+        occ4 only."""
         n_rows, W = table.shape
         if seq_len is None:
             seq_len = n_rows * 128
@@ -210,7 +218,7 @@ class Bench:
                                  device=self.device, dtype=torch.int64)
             keys[:len(edges)] = edges[:n]
             m = max(n // (2 * LANES), 1)
-            variants = {
+            variants = {} if isinstance(table, SplitTable) else {
                 "fwd_gather": lambda: table[ids.view(2, -1)],
                 "flat_gather": lambda: table[ids],
                 "take": lambda: torch.index_select(table, 0, ids),
@@ -379,14 +387,16 @@ def launch_cost(table: torch.Tensor, n: int, seed: int = 0) -> dict:
     return res
 
 
-def load_occ_table(prefix: str, device):
-    """(blocks, primary, seq_len) of an index's occ table, on the
-    device."""
+def load_occ_table(prefix: str, device, parts: int = 1):
+    """(blocks, primary, seq_len) of an index's occ table, on the device:
+    whole, or with parts > 1 a SplitTable of that many parts there."""
     from .index import load_index
     from .ops.fm import DeviceFmIndex
     fm, _ = load_index(prefix)
     d = DeviceFmIndex.from_host(fm)
-    return d.blocks.to(device), d.primary_int, d.seq_len_int
+    blocks = d.blocks.to(device) if parts == 1 \
+        else SplitTable.cut(d.blocks, [device] * parts)
+    return blocks, d.primary_int, d.seq_len_int
 
 
 def run(args, emit=None, check=None) -> list:

@@ -136,24 +136,27 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "bm_smem_superstep": [_VP, _I64, _I64, _VP, _VP, _I, _VP, _VP, _VP,
-                          _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP,
-                          _VP, _VP],
-    "bm_sa_walk": [_VP, _I64, _I64, _VP, _VP, _I, _I64, _VP, _I, _I, _VP,
-                   _I, _VP, _VP],
+    # the FM kernels take a table as (its parts' addresses, their count,
+    # the rows of each but the last); one part is the whole table
+    "bm_smem_superstep": [_VP, _I, _I64, _I64, _I64, _VP, _VP, _I, _VP,
+                          _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP,
+                          _VP, _VP, _VP, _VP],
+    "bm_sa_walk": [_VP, _I, _I64, _I64, _I64, _VP, _VP, _I64, _I, _I64,
+                   _VP, _I, _I, _VP, _I, _VP, _VP],
     "bm_extend_lr": [_I, _I, _I] + [_VP] * 9 + [_I] * 8 + [_VP] * 14,
     "bm_extend2": [_I, _I, _I] + [_VP] * 5 + [_I] * 4 + [_VP] * 2 + [_I]
                   + [_VP] * 8,
     "bm_global2": [_I, _I, _I] + [_VP] * 6 + [_I] * 4 + [_VP] * 6,
     "bm_align2": [_I, _I, _I, _I] + [_VP] * 6 + [_I] * 5 + [_VP] * 7,
-    "bm_smem_iter_step": [_VP, _I64, _I64, _VP, _VP, _I] + [_VP] * 6
-                         + [_I, _I, _I, _VP, _VP, _VP, _VP],
+    "bm_smem_iter_step": [_VP, _I, _I64, _I64, _I64, _VP, _VP, _I]
+                         + [_VP] * 6 + [_I, _I, _I, _VP, _VP, _VP, _VP],
     "bm_build_rows": [_VP, _I, _I, _VP, _I64, _I64] + [_VP] * 7
                      + [_I, _I, _I] + [_VP] * 5,
     "bm_gather_rows": [_VP, _I64, _I, _VP, _I64, _I, _VP, _VP],
-    "bm_occ4": [_VP, _I64, _I64, _VP, _I64, _VP, _VP],
+    "bm_occ4": [_VP, _I, _I64, _I64, _I64, _VP, _I64, _VP, _VP],
     "bm_row_chain": [_VP, _I64, _I, _VP, _I64, _I, _I, _I, _VP, _VP],
     "bm_affine_loop": [_VP, _I64, _I, _VP, _VP],
+    "bm_enable_peer": [_I, _I],
 }
 
 _lib = None
@@ -255,6 +258,34 @@ def _leave_card(prev: int) -> None:
     """Make card prev current again, as torch.cuda.device does on exit
     (without creating a context on a card that has none)."""
     torch.cuda._maybe_exchange_device(prev)
+
+
+# (card, peer) pairs where card loads peer's memory (enable_peer)
+_PEERS = set()
+
+
+def enable_peer(card: int, peer: int) -> None:
+    """Let kernels on card load peer's memory (bm_enable_peer: one way;
+    enabling it again is no error).  RuntimeError where the two cards
+    cannot reach each other: a split table's rows are never staged
+    through the host instead."""
+    if card == peer or (card, peer) in _PEERS:
+        return
+    rc = library().bm_enable_peer(card, peer)
+    if rc:
+        raise RuntimeError(
+            f"cuda:{card} cannot load the memory of cuda:{peer} ("
+            + ("no peer access between them" if rc == -1
+               else f"CUDA error {rc}")
+            + "): split tables need peer access between every pair of "
+            "their cards")
+    _PEERS.add((card, peer))
+
+
+def reaches(card: int, other: int) -> bool:
+    """Whether kernels on card may load other's memory: the same card, or
+    a peer enabled by enable_peer."""
+    return card == other or (card, other) in _PEERS
 
 
 def card_of(t: torch.Tensor, what: str) -> int:

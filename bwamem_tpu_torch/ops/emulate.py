@@ -1,12 +1,14 @@
-"""The host emulation of the extension, SMEM, global-alignment, local-SW
-and row-builder kernels.
+"""The host emulation of the extension, SMEM, SA-walk, occ4,
+global-alignment, local-SW and row-builder kernels.
 
 ``csrc/extend.cu``, ``csrc/smem.cu``, ``csrc/global.cu`` and
 ``csrc/align.cu`` are written against a team of lanes
 (``csrc/team.cuh``); built by g++ instead of nvcc, each runs a thread
 group's lanes as arrays in one CPU thread, with the shuffles and ballots
-as loops.  ``csrc/extbuild.cu`` is plain per-thread code: its host entry
-runs the kernel's threads in turn.  This module builds them (one shared
+as loops.  ``csrc/extbuild.cu``, ``csrc/sa.cu`` and ``csrc/occ.cu`` are
+plain per-thread code: their host entries run the kernel's threads in
+turn.  The FM kernels take the index whole or split into parts
+(ops/fm.py SplitTable), as on the card.  This module builds them (one shared
 library per source under ``bwamem_tpu_torch/_build/host``, keyed by a
 hash of the sources) and
 calls their ``*_host`` entries on CPU arrays: the kernels' own algorithm
@@ -43,11 +45,17 @@ _SIGNATURES = {
         "bm_extend2_host": [_I, _I, _I] + [_VP] * 5 + [_I] * 4 + [_VP] * 2
                            + [_I] + [_VP] * 8},
     "smem.cu": {
-        "bm_smem_superstep_host": [_VP, _I64, _I64, _VP, _VP, _I] + [_VP] * 5
-                                  + [_I, _I, _I] + [_VP] * 6,
-        "bm_smem_iter_step_host": [_VP, _I64, _I64, _VP, _VP, _I]
+        "bm_smem_superstep_host": [_VP, _I, _I64, _I64, _I64, _VP, _VP, _I]
+                                  + [_VP] * 5 + [_I, _I, _I] + [_VP] * 6,
+        "bm_smem_iter_step_host": [_VP, _I, _I64, _I64, _I64, _VP, _VP, _I]
                                   + [_VP] * 6 + [_I, _I, _I, _VP, _VP,
                                                  _VP]},
+    "sa.cu": {
+        "bm_sa_walk_host": [_VP, _I, _I64, _I64, _I64, _VP, _VP, _I64, _I,
+                            _I64, _VP, _I, _I, _VP, _I, _VP]},
+    "occ.cu": {
+        "bm_occ4_host": [_VP, _I, _I64, _I64, _I64, _VP, _I64, _VP],
+        "bm_part_of_host": [_I64, _I, _VP, _I64, _VP, _VP]},
     "global.cu": {
         "bm_global2_host": [_I, _I, _I] + [_VP] * 6 + [_I] * 4 + [_VP] * 5},
     "align.cu": {
@@ -237,9 +245,23 @@ def build_rows(reads_q, pac, l_pac: int, rid, qb0, slen, rb0, rmax0, rmax1,
     return tuple(torch.from_numpy(o) for o in outs)
 
 
+def _table_args(table, dtype):
+    """(host copies of a table's parts, the entries' three arguments for
+    it: the parts' addresses, their count, the rows of each but the
+    last); a whole table is one part, an ops/fm.py SplitTable its
+    parts."""
+    parts = getattr(table, "parts", None) or (table,)
+    arrays = [_np(p, dtype) for p in parts]
+    rows = table.rows if len(parts) > 1 else len(arrays[0])
+    return arrays, ((ctypes.c_void_p * len(arrays))(*_ptrs(arrays)),
+                    len(arrays), rows)
+
+
 def _fm_args(dfm):
-    blocks = _np(dfm.blocks, np.int32)
-    return blocks, (blocks.ctypes.data, dfm.primary_int, dfm.seq_len_int,
+    """(the host copies to keep alive, the FM entries' first six
+    arguments) of a DeviceFmIndex or SplitFmIndex."""
+    blocks, occ = _table_args(dfm.blocks, np.int32)
+    return blocks, (*occ, dfm.primary_int, dfm.seq_len_int,
                     dfm.L2_host.ctypes.data)
 
 
@@ -292,3 +314,51 @@ def smem_iter_step(dfm, q_pk, qlen, x, min_intv, active, split_len,
     T = torch.from_numpy
     return (*(T(a) for a in o1[:7]), T(o1[7]).bool(), T(need2).bool(),
             *(T(a) for a in o2[:7]), T(o2[7]).bool())
+
+
+def sa_walk(dfm, keys, max_steps: int):
+    """bm_sa_walk's threads on the host, one key after another; the
+    arguments and outputs of ops/fm.py sa_walk_cuda."""
+    blocks, fm = _fm_args(dfm)
+    sa_dt = np.int64 if dfm.sa.dtype == torch.int64 else np.int32
+    sa, (sa_arg, _, sa_rows) = _table_args(dfm.sa, sa_dt)
+    k = _np(keys, np.int64)
+    n = len(k)
+    is64 = dfm.cdt == torch.int64
+    vals = np.zeros(n, np.int64 if is64 else np.int32)
+    over = np.zeros(n, np.uint8)
+    rc = _library("sa.cu").bm_sa_walk_host(
+        *fm, sa_arg, sa_rows, int(sa_dt == np.int64), dfm.sa_intv,
+        k.ctypes.data, n, max_steps, vals.ctypes.data, int(is64),
+        over.ctypes.data)
+    _check(rc, "sa_walk")
+    del blocks, sa
+    return torch.from_numpy(vals), torch.from_numpy(over).bool()
+
+
+def occ4(blocks, primary: int, keys):
+    """bm_occ4's threads on the host; the arguments and outputs of
+    ops/occ.py occ4_cuda."""
+    arrays, occ = _table_args(blocks, np.int32)
+    k = _np(keys, np.int64)
+    out = np.zeros((len(k), 4), np.int64)
+    rc = _library("occ.cu").bm_occ4_host(
+        *occ, blocks.shape[0], primary, k.ctypes.data, len(k),
+        out.ctypes.data)
+    _check(rc, "occ4")
+    del arrays
+    return torch.from_numpy(out).reshape(*np.shape(keys), 4)
+
+
+def part_of(rows: int, n_parts: int, r):
+    """The split kernels' part lookup (csrc/fm.cuh row_at) on the host:
+    (part int32, offset int64) of each row id in r, for a table cut into
+    n_parts parts of `rows` rows."""
+    ids = _np(r, np.uint64)
+    part = np.zeros(len(ids), np.int32)
+    off = np.zeros(len(ids), np.int64)
+    rc = _library("occ.cu").bm_part_of_host(
+        rows, n_parts, ids.ctypes.data, len(ids), part.ctypes.data,
+        off.ctypes.data)
+    _check(rc, "part_of")
+    return part, off

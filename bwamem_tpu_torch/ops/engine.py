@@ -50,6 +50,11 @@ The lane widths must be divisible by the shard count.  As in the JAX
 engine, only the L=128 bucket seeds under the mesh (longer reads chain on
 the host oracle), the on-device row builder stays off, and align2 and the
 SUPERSTEP=0 route's iterator steps run on the mesh's first device.
+With ``shard_tables`` (or BWAMEM_TPU_SHARD_TABLES=1, JAX
+engine.py:131-152) over a mesh of two or more shards, the occ table and
+the sampled SA are split by rows over the shards instead of replicated
+(parallel/mesh.py), and every kernel that reads them, the first
+device's iterator steps too, reads each part where it lies.
 
 The JAX engine's speculative extension cache (ExtCache,
 _speculate_extensions) is not ported: on the routes that reach
@@ -138,7 +143,7 @@ class TorchSeedingEngine:
     """Device engine for core.pipeline: the same methods and counters
     that pipeline calls on the JAX engine."""
 
-    def __init__(self, fm_host, device, mesh=None):
+    def __init__(self, fm_host, device, mesh=None, shard_tables=None):
         _require_native()
         env = os.environ.get
         self.fm_host = fm_host
@@ -149,17 +154,22 @@ class TorchSeedingEngine:
         self.wave_glo = int(env("BWAMEM_TPU_WAVE_GLO", str(self.wave * 2)))
         # every launch but align2 and the iterator steps goes through the
         # kernels, over a reads mesh (engine.py:116-152) or over this one
-        # device; the index is replicated on each of the mesh's devices
+        # device; the index is replicated on each of the mesh's devices,
+        # or split over them with shard_tables (a mesh of two or more)
         from bwamem_tpu_torch.parallel.mesh import ShardedKernels
         self.mesh = mesh
         if mesh is not None:     # the engine's device is the mesh's first
             device = mesh[0]
             if len(mesh) > 1:
                 self._check_widths(len(mesh))
+        if shard_tables is None:
+            shard_tables = env("BWAMEM_TPU_SHARD_TABLES", "0") != "0"
+        self.shard_tables = bool(shard_tables) and mesh is not None \
+            and len(mesh) > 1
         self.device = torch.device(device)
         self.kernels = ShardedKernels(
             (self.device,) if mesh is None else mesh,
-            DeviceFmIndex.from_host(fm_host))
+            DeviceFmIndex.from_host(fm_host), self.shard_tables)
         self.dfm = self.kernels.index_on(self.device)
         self.seeder = BatchedSeeder(self.dfm, fm_host, self, self.kernels)
         # per-chunk length buckets: the L=256 and L=512 seeders are

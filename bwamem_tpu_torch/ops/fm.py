@@ -13,9 +13,22 @@ kernels are held against); ``sa_lookup`` is the SA-walk kernel's
 wrapper.  Coordinates follow the JAX package's dtype rule: int32 tables
 when the doubled pack fits 31 bits, int64 beyond; the arithmetic itself
 runs in int64, which gives the same values.
+
+Split tables (``mem --shard-tables``, the JAX package's
+``BWAMEM_TPU_SHARD_TABLES=1``): ``DeviceFmIndex.split`` cuts the occ
+table and the sampled SA by rows into one contiguous part per device of
+a mesh (``SplitTable``), each part copied from the host straight to its
+device, and returns a ``SplitFmIndex``, which answers what a
+DeviceFmIndex answers.  The plain versions read every row through one
+accessor (``take``), which takes either kind of table; the kernels
+resolve a row to its part and load it where it lies (csrc/fm.cuh), with
+no collective: where the JAX package gathers row indices from every
+shard and scatters the rows back (its ops/fm.py _sharded_lookup), a
+card loads a peer card's row over NVLink.
 """
 
 import copy
+import ctypes
 import os
 
 import numpy as np
@@ -42,6 +55,106 @@ def _uniform_blocks(bwt: np.ndarray, seq_len: int) -> np.ndarray:
         rem = n_plain_words - full * 8
         out[full, :8 + rem] = bwt[full * 16:full * 16 + 8 + rem]
     return out
+
+
+MAX_PARTS = 8   # csrc/fm.cuh kMaxParts: one part per card of a node
+
+
+class SplitTable:
+    """A table cut by rows into contiguous parts: part i holds rows
+    [i * rows, (i + 1) * rows), the last part what is left (a part is
+    empty where the table is too short to reach it).  The parts are
+    allocations of their own, so no device holds the whole table."""
+
+    def __init__(self, parts, rows: int):
+        self.parts = tuple(parts)
+        self.rows = rows
+        n = sum(p.shape[0] for p in self.parts)
+        self.shape = torch.Size((n, *self.parts[0].shape[1:]))
+        self.dtype = self.parts[0].dtype
+        # the kernels' argument: a host array of the parts' addresses
+        self.arg = (ctypes.c_void_p * len(self.parts))(
+            *(p.data_ptr() for p in self.parts))
+
+    @staticmethod
+    def part_rows(n: int, k: int) -> int:
+        """Rows of each of k parts of n rows but the last: ceil(n / k),
+        at least 2, rounded up to a multiple of 2^shift, shift =
+        max(0, bit_length - 29), so that the kernels' part lookup
+        (csrc/fm.cuh row_at) divides 32-bit numbers; the rounding moves
+        fewer than one row in 2^28."""
+        rows = max(-(-n // k), 2)
+        shift = max(rows.bit_length() - 29, 0)
+        return -(-rows >> shift) << shift
+
+    @classmethod
+    def cut(cls, table: torch.Tensor, devices) -> "SplitTable":
+        """table cut into one part per device, in order (a device may
+        repeat), part_rows rows a part, each copied from table to its
+        device on its own."""
+        k, n = len(devices), table.shape[0]
+        if not 2 <= k <= MAX_PARTS:
+            raise ValueError(f"a table splits into 2 to {MAX_PARTS} parts, "
+                             f"not {k}")
+        rows = cls.part_rows(n, k)
+        return cls([table[min(i * rows, n):min((i + 1) * rows, n)].to(
+            torch.device(d), copy=True) for i, d in enumerate(devices)],
+            rows)
+
+    def element_size(self) -> int:
+        return self.parts[0].element_size()
+
+    def take(self, idx: torch.Tensor) -> torch.Tensor:
+        """Rows idx [...] as table[idx] gives them (negative ids from the
+        end, IndexError past it), on idx's device: each part's rows
+        gathered where they lie."""
+        n = self.shape[0]
+        idx = idx.to(torch.int64)
+        if idx.numel() and (int(idx.min()) < -n or int(idx.max()) >= n):
+            raise IndexError(f"a row id outside [-{n}, {n})")
+        idx = torch.where(idx < 0, idx + n, idx)
+        part = idx // self.rows
+        off = idx - part * self.rows
+        out = torch.empty((*idx.shape, *self.shape[1:]), dtype=self.dtype,
+                          device=idx.device)
+        for i, p in enumerate(self.parts):
+            sel = part == i
+            out[sel] = p[off[sel].to(p.device)].to(idx.device)
+        return out
+
+
+def take(table, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for a whole table (a tensor) or a SplitTable: the one
+    row accessor of the plain versions."""
+    if isinstance(table, SplitTable):
+        return table.take(idx)
+    return table[idx]
+
+
+def kernel_parts(table):
+    """The first three arguments of the FM kernels' entries for a table:
+    a host array of its parts' addresses, their count and the rows of
+    each but the last; a whole table is one part."""
+    if isinstance(table, SplitTable):
+        return table.arg, len(table.parts), table.rows
+    return (ctypes.c_void_p * 1)(table.data_ptr()), 1, table.shape[0]
+
+
+def check_parts(table, idx: int, what: str) -> None:
+    """ValueError unless every part of table (a whole table: itself) lies
+    on card idx or on a card whose memory idx reaches by peer access
+    (_kernels.enable_peer), 16-byte aligned (the kernels load a row in
+    16-byte pieces)."""
+    parts = table.parts if isinstance(table, SplitTable) else (table,)
+    for p in parts:
+        card = p.get_device()
+        if card != idx and not _kernels.reaches(idx, card):
+            raise ValueError(f"{what}: a table part on {p.device}, which "
+                             f"cuda:{idx} cannot load (peer access not "
+                             f"enabled)")
+        if p.data_ptr() % 16:
+            raise ValueError(f"{what}: a table part is not 16-byte aligned "
+                             f"(the kernels load a row in 16-byte pieces)")
 
 
 class DeviceFmIndex(nn.Module):
@@ -91,6 +204,17 @@ class DeviceFmIndex(nn.Module):
     def n_blocks(self) -> int:
         return int(self.blocks.shape[0])
 
+    def split(self, devices) -> "SplitFmIndex":
+        """The occ table and the sampled SA cut into one part per device
+        of devices, in order (SplitTable.cut: each part copied on its own,
+        so none of them holds a whole table); the scalars and L2 on the
+        first device."""
+        devices = [torch.device(d) for d in devices]
+        return SplitFmIndex(SplitTable.cut(self.blocks, devices),
+                            SplitTable.cut(self.sa, devices), self.L2,
+                            self.primary_int, self.seq_len_int, self.sa_intv,
+                            devices[0])
+
     @classmethod
     def from_host(cls, fm) -> "DeviceFmIndex":
         """Tables of a host FmIndex (bwamem_tpu.index.fmindex.FmIndex),
@@ -122,6 +246,51 @@ class DeviceFmIndex(nn.Module):
                    int(np.asarray(seq_len)), np.asarray(sa), int(sa_intv))
 
 
+class SplitFmIndex:
+    """The index with its occ table (``blocks``) and sampled SA (``sa``)
+    as SplitTables, the parts on the devices of a mesh, and L2, primary
+    and seq_len on one device, its own (``device``): the attributes of a
+    DeviceFmIndex, so the plain versions and the kernels' wrappers take
+    either.  ``on(device)`` is the same parts seen from another device."""
+
+    def __init__(self, blocks: SplitTable, sa: SplitTable, L2, primary: int,
+                 seq_len: int, sa_intv: int, device):
+        self.blocks = blocks
+        self.sa = sa
+        self.sa_intv = int(sa_intv)
+        self.primary_int = int(primary)
+        self.seq_len_int = int(seq_len)
+        self.L2_host = np.asarray(L2.cpu(), np.int64)
+        self.L2_host_ptr = self.L2_host.ctypes.data
+        self._place(L2, device)
+
+    def _place(self, L2, device) -> None:
+        self._device = torch.device(device)
+        self.L2 = L2.to(self._device)
+        self.primary = torch.tensor(self.primary_int, dtype=L2.dtype,
+                                    device=self._device)
+        self.seq_len = torch.tensor(self.seq_len_int, dtype=L2.dtype,
+                                    device=self._device)
+
+    @property
+    def cdt(self) -> torch.dtype:
+        return self.L2.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.blocks.shape[0])
+
+    def on(self, device) -> "SplitFmIndex":
+        """The same parts, the scalars and L2 on device."""
+        new = copy.copy(self)
+        new._place(self.L2, device)
+        return new
+
+
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
     """Popcount of non-negative int64 values below 2^32 (SWAR)."""
     x = x - ((x >> 1) & _M55)
@@ -132,7 +301,7 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 
 def _rows(blocks: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
     """Occ-block rows [..., 16] as int64 words in [0, 2^32)."""
-    return blocks[blk].to(torch.int64) & _M32
+    return take(blocks, blk).to(torch.int64) & _M32
 
 
 def occ4(blocks, primary: int, k: torch.Tensor) -> torch.Tensor:
@@ -216,7 +385,7 @@ def inv_psi(blocks, primary: int, L2, seq_len: int, k) -> torch.Tensor:
     return torch.where(k == primary, torch.zeros_like(k), nxt)
 
 
-def sa_lookup_batched(dfm: DeviceFmIndex, k: torch.Tensor,
+def sa_lookup_batched(dfm, k: torch.Tensor,
                       max_steps: int = 128):
     """Plain version of the SA walk (bwt_sa): all keys walk inverse-Psi
     steps in lock-step, each until it reaches a sampled row or
@@ -238,12 +407,12 @@ def sa_lookup_batched(dfm: DeviceFmIndex, k: torch.Tensor,
         steps = steps + act.to(torch.int64)
     over = (k & mask) != 0
     si = torch.where(over, torch.zeros_like(k), k >> (intv.bit_length() - 1))
-    vals = steps + dfm.sa.to(torch.int64)[si]
+    vals = steps + take(dfm.sa, si).to(torch.int64)
     vals = torch.where(over, torch.full_like(vals, -1), vals)
     return vals.to(dfm.cdt), over
 
 
-def sa_walk_cuda(dfm: DeviceFmIndex, k: torch.Tensor, max_steps: int):
+def sa_walk_cuda(dfm, k: torch.Tensor, max_steps: int):
     """Launch the SA-walk kernel (csrc/sa.cu) on CUDA keys; it writes the
     values in the coordinate dtype and the flags as bool."""
     intv = dfm.sa_intv
@@ -251,24 +420,25 @@ def sa_walk_cuda(dfm: DeviceFmIndex, k: torch.Tensor, max_steps: int):
         raise ValueError(f"sa_intv must be a power of two, got {intv}; "
                          "such indexes take the host walk")
     idx = _kernels.card_of(k, "sa_walk")
-    if dfm.blocks.get_device() != idx:
-        raise ValueError(f"keys on {k.device}, index on {dfm.device}")
+    check_parts(dfm.blocks, idx, "sa_walk")
+    check_parts(dfm.sa, idx, "sa_walk")
     keys = _kernels.on_card(k, torch.int64, idx)
     n = keys.numel()
     cdt = dfm.cdt
     vals = torch.empty(n, dtype=cdt, device=k.device)
     over = torch.empty(n, dtype=torch.bool, device=k.device)
     if n:
+        sa, _, sa_rows = kernel_parts(dfm.sa)
         _kernels.SA.launch(
-            idx, dfm.blocks.data_ptr(), dfm.primary_int, dfm.seq_len_int,
-            dfm.L2_host_ptr, dfm.sa.data_ptr(),
+            idx, *kernel_parts(dfm.blocks), dfm.primary_int,
+            dfm.seq_len_int, dfm.L2_host_ptr, sa, sa_rows,
             int(dfm.sa.dtype == torch.int64), intv, keys.data_ptr(), n,
             int(max_steps), vals.data_ptr(), int(cdt == torch.int64),
             over.data_ptr())
     return vals, over
 
 
-def sa_lookup(dfm: DeviceFmIndex, k: torch.Tensor, max_steps: int = 128):
+def sa_lookup(dfm, k: torch.Tensor, max_steps: int = 128):
     """bwt_sa for a batch of rows: the SA-walk kernel for CUDA keys, the
     plain version for CPU keys."""
     if k.is_cuda:

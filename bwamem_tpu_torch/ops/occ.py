@@ -40,6 +40,11 @@ def _as_int32(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
+def _parts(table):
+    """A table's parts: a fm.SplitTable's, or the whole table."""
+    return table.parts if isinstance(table, fm.SplitTable) else (table,)
+
+
 def _check_table(table: torch.Tensor) -> None:
     if table.dtype != torch.int32 or table.dim() != 2:
         raise ValueError(f"expected an int32 (n_rows, W) table, got "
@@ -97,23 +102,24 @@ def gather_rows(table, ids, transpose: bool = False) -> torch.Tensor:
 
 # ---- occ4 -----------------------------------------------------------------
 
-def occ4_cuda(blocks: torch.Tensor, primary: int,
-              k: torch.Tensor) -> torch.Tensor:
+def occ4_cuda(blocks, primary: int, k: torch.Tensor) -> torch.Tensor:
     """Launch bm_occ4 (csrc/occ.cu): bwt_occ4 of int keys [...] on the
-    (n_blocks, 16) table; int64 [..., 4], zeros for k < 0 and for a key
-    past the table (which the plain version refuses)."""
-    _check_table(blocks)
+    (n_blocks, 16) table, whole or a fm.SplitTable; int64 [..., 4], zeros
+    for k < 0 and for a key past the table (which the plain version
+    refuses)."""
+    for part in _parts(blocks):
+        _check_table(part)
     if blocks.shape[1] != 16:
         raise ValueError(f"expected (n_blocks, 16) occ blocks, got "
                          f"{tuple(blocks.shape)}")
     idx = _kernels.card_of(k, "occ4")
-    if blocks.get_device() != idx:
-        raise ValueError(f"keys on {k.device}, table on {blocks.device}")
-    blocks = _kernels.on_card(blocks, torch.int32, idx)
+    fm.check_parts(blocks, idx, "occ4")
+    if isinstance(blocks, torch.Tensor) and not blocks.is_contiguous():
+        blocks = blocks.contiguous()
     keys = _kernels.on_card(k, torch.int64, idx)
     out = torch.empty((*k.shape, 4), dtype=torch.int64, device=k.device)
     if keys.numel():
-        _kernels.OCC4.launch(idx, blocks.data_ptr(), blocks.shape[0],
+        _kernels.OCC4.launch(idx, *fm.kernel_parts(blocks), blocks.shape[0],
                              int(primary), keys.data_ptr(), keys.numel(),
                              out.data_ptr())
     return out

@@ -13,7 +13,10 @@ Python ``while`` loops over all lanes take the place of
 ``lax.while_loop``.  Queries of up to 512 bp (the L=128, 256 and 512
 buckets) go through the same code; outputs are int32/int64 at every L.  The compaction and the key expansion are plain
 tensor code on either device; the SA walk is ``fm.sa_lookup`` (the
-SA-walk kernel on CUDA).
+SA-walk kernel on CUDA).  The index is a ``fm.DeviceFmIndex`` or, with
+its tables split over the cards of a mesh (``mem --shard-tables``), a
+``fm.SplitFmIndex``: the plain versions read rows through ``fm.take``
+and the kernels through their part lookup.
 """
 
 import ctypes
@@ -21,7 +24,8 @@ import ctypes
 import torch
 
 from . import _kernels
-from .fm import DeviceFmIndex, extend, sa_lookup
+from .fm import (DeviceFmIndex, check_parts, extend, kernel_parts,
+                 sa_lookup)
 from .ksw import unpack4
 
 _BIG = 2 ** 30
@@ -315,11 +319,7 @@ def _check_queries(dfm: DeviceFmIndex, q_pk, qlen, L: int,
         raise ValueError(f"q_pk must be int8 ({B}, {L // 2})")
     _kernels.check_host_lengths("smem", ("query", qlen, L))
     idx = _kernels.card_of(q_pk, "smem")
-    if dfm.blocks.get_device() != idx:
-        raise ValueError(f"queries on {q_pk.device}, index on {dfm.device}")
-    if dfm.blocks.data_ptr() % 16:
-        raise ValueError("the occ table must be 16-byte aligned (the "
-                         "kernels load a row in 16-byte pieces)")
+    check_parts(dfm.blocks, idx, "smem")
     return idx
 
 
@@ -413,8 +413,8 @@ def smem_iter_step_cuda(dfm: DeviceFmIndex, q_pk, qlen, x, min_intv,
         p1, p2 = ((ctypes.c_void_p * 8)(*(t.data_ptr() for t in o))
                   for o in (o1, o2))
         _kernels.SMEM1.launch(
-            idx, dfm.blocks.data_ptr(), dfm.primary_int, dfm.seq_len_int,
-            dfm.L2_host_ptr, q.data_ptr(), L,
+            idx, *kernel_parts(dfm.blocks), dfm.primary_int,
+            dfm.seq_len_int, dfm.L2_host_ptr, q.data_ptr(), L,
             *(a.data_ptr() for a in args), M, M_OUT, B, p1,
             need2.data_ptr(), p2, bucket=f"L{L}")
     return (*o1, need2, *o2)
@@ -449,8 +449,8 @@ def superstep_cuda(dfm: DeviceFmIndex, q_pk, qlen, min_intv, active,
     over = torch.empty(B, dtype=torch.bool, device=dev)
     if B:
         _kernels.SMEM.launch(
-            idx, dfm.blocks.data_ptr(), dfm.primary_int, dfm.seq_len_int,
-            dfm.L2_host_ptr, q.data_ptr(), L,
+            idx, *kernel_parts(dfm.blocks), dfm.primary_int,
+            dfm.seq_len_int, dfm.L2_host_ptr, q.data_ptr(), L,
             *(a.data_ptr() for a in args), M, OUT_CAP, B, o0.data_ptr(),
             os_.data_ptr(), oqb.data_ptr(), oqe.data_ptr(), n_out.data_ptr(),
             over.data_ptr(), bucket=f"L{L}")

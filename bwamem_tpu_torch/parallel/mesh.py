@@ -8,7 +8,7 @@ tuple of ``torch.device``s (``make_mesh``).  A device may repeat: the
 shards then share it, as the JAX tests' shards share one CPU through 8
 virtual devices.
 
-``ShardedKernels`` holds one DeviceFmIndex per distinct device and is
+``ShardedKernels`` holds the index on each distinct device and is
 the engine's one way to its seeding, SA-walk and SW kernels: over a
 mesh, or over the engine's one device.  Each call splits the lane axis
 into one contiguous block per shard, moves each block from the host
@@ -31,11 +31,18 @@ insert-size statistics are computed per chunk on the host, and the
 iterator steps of ``BWAMEM_TPU_SUPERSTEP=0`` run on the mesh's first
 device, as in the JAX engine.  The tests hold them to the JAX functions.
 
-Row-sharded tables (the JAX package's ``shard_tables=True``, ``mem
---shard-tables``) are not ported: there every table gather becomes an
-all_gather, a local gather and a psum_scatter, a TPU workaround for
-having no remote loads.  On Hopper the kernels would read a peer card's
-rows over NVLink instead.
+Row-split tables (``ShardedKernels(..., shard_tables=True)``, ``mem
+--shard-tables``, the JAX package's ``shard_tables=True``): the occ
+table and the sampled SA are cut into one contiguous part per shard, in
+mesh order, each part on its shard's device (ops/fm.py
+``DeviceFmIndex.split``), so each card holds 1/n of them.  The lanes
+split as before; each shard's kernels read every part in place, a peer
+card's rows over NVLink, with peer access enabled for every ordered pair
+of distinct cards.  The JAX package turns every table gather into an
+all_gather of the indices, a local gather and a psum_scatter, because a
+TPU core cannot load another chip's memory; an H100 can, so there is no
+collective here, and nothing like its ``global_any`` to keep the shards'
+loop trips in step.
 """
 
 from typing import Optional
@@ -43,6 +50,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import _kernels
 from ..ops.fm import DeviceFmIndex, sa_lookup
 from ..ops.ksw import (ksw_extend2_batched, ksw_extend_lr_batched,
                        ksw_global2_batched)
@@ -154,22 +162,32 @@ def _host(a) -> torch.Tensor:
 class ShardedKernels:
     """Reads-axis wrappers of every device call the engine makes: the
     fused seeding call, the SA walk, the iterator step and the three SW
-    waves.  The index and the scoring matrix are replicated per device;
-    every per-lane array is split across the mesh (JAX
-    parallel/mesh.py:114).  A one-device mesh is the single-device
-    call."""
+    waves.  The index and the scoring matrix are replicated per device
+    (with shard_tables, the index's occ table and sampled SA are split
+    over the shards instead); every per-lane array is split across the
+    mesh (JAX parallel/mesh.py:114).  A one-device mesh is the
+    single-device call."""
 
-    def __init__(self, mesh, dfm: DeviceFmIndex):
+    def __init__(self, mesh, dfm: DeviceFmIndex, shard_tables: bool = False):
         self.mesh = tuple(_device(d) for d in mesh)
         self.n = len(self.mesh)
+        self.shard_tables = shard_tables
         self._index = {}
+        if shard_tables:
+            split = dfm.split(self.mesh)
+            cards = sorted({d.index for d in self.mesh if d.type == "cuda"})
+            for a in cards:
+                for b in cards:
+                    _kernels.enable_peer(a, b)
         for d in self.mesh:
             if d not in self._index:
-                self._index[d] = dfm.replica(d)
+                self._index[d] = split.on(d) if shard_tables \
+                    else dfm.replica(d)
         self._copies = {}   # (id(t), device) -> (t, its copy there)
 
-    def index_on(self, device) -> DeviceFmIndex:
-        """The index replica on one of the mesh's devices."""
+    def index_on(self, device):
+        """The index on one of the mesh's devices: its replica there, or
+        with shard_tables a view over every part (SplitFmIndex)."""
         return self._index[_device(device)]
 
     def _replica(self, t: torch.Tensor, d: torch.device) -> torch.Tensor:
@@ -184,7 +202,7 @@ class ShardedKernels:
         """fn on every shard: the args at positions `lanes` split into
         the shards' blocks on their devices, every other tensor
         replicated, the rest passed as they are; with `index` the shard's
-        index replica goes first.  Every shard is launched before any
+        index goes first.  Every shard is launched before any
         output is touched.  Returns ((lo, hi), output) per shard, in
         order."""
         bounds = shard_bounds(len(args[lanes[0]]), self.n)

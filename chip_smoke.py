@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (bwamem_tpu_torch) on one GPU.
 
     python3 chip_smoke.py           # all phases, one GPU
-    python3 chip_smoke.py --quick   # phases 1-3, 5 and 6 on the bundled
+    python3 chip_smoke.py --quick   # phases 1-3 and 5-7 on the bundled
                                     # genome
     python3 chip_smoke.py --kernels [--root DIR]   # phases 1-2 only
                                     # (--root: the package of another tree,
@@ -51,7 +51,13 @@ Phases, each printing one line with its own numbers and seconds:
    table); and gather_rows at 16,384 ids of the index's occ table
    against index_select, its library call, by CUDA events and device
    time, with microbench.launch_cost's step-by-step host cost of the
-   call;
+   call.  Split tables (`mem --shard-tables`): the superstep and the
+   iterator step at L=128, the SA walk and occ4 (262,144 keys, the part
+   boundaries among them) over the index cut into 2 and 4 parts on this
+   card, held against their plain versions over the same parts and
+   against the whole-table kernel, tolerance zero, each timed right
+   after the whole-table kernel (the difference is the part lookup's
+   cost; the `split_kernels` line);
 3. goldens: ``mem`` SE, SE -a -M and PE on tests/data through
    ``bwamem_tpu_torch.cli --device cuda``, byte-identical to the goldens
    (without @PG), then the -v 4 SE, -v 4 PE and -v 5 traces of the
@@ -106,14 +112,26 @@ Phases, each printing one line with its own numbers and seconds:
    byte-identical, its trace naming the superstep, SA-walk and extension
    kernels.  ``--quick`` keeps the goldens.
 
+7. split tables: the engine over the same mesh with its occ table and
+   sampled SA split by rows over the shards (two parts on card 0 when
+   there is one card): the SE, SE -a -M and PE goldens, the -v 4 SE trace
+   and BWAMEM_TPU_SUPERSTEP=0 on the SE golden byte-identical; the 100k
+   SE and 20k PE sets equal to phase 4's single-card SAM, their reads/s
+   beside phase 4's and phase 6's; each kernel's launches per card; the
+   device memory the engine added on each card (with two or more cards,
+   at most its share of the tables); occ4 on the 4 GiB random table of
+   the microbench split in 4 parts of 1 GiB against the whole table, both
+   timed.  ``--quick`` keeps the goldens and the 4 GiB occ4.
+
 Launch counts are zeroed just before each path and read just after: the
 default flat route (goldens, real size, long reads: superstep, SA walk
 and extend_lr launched, at L=256, L=512, LQ=256 and LQ=512 too), the
 SUPERSTEP=0 route (smem1_step, SA walk, extend_lr), the ONCHIP_EXT=1
 route (superstep, SA walk, build_rows, extend_lr) and the generator wave
 path (extend2, global2, align2), the microbench sweep (gather_rows,
-occ4, row_chain, affine_loop), and the reads mesh of phase 6 (superstep,
-SA walk, extend_lr, extend2, global2).  The last three lines are nvidia-smi's
+occ4, row_chain, affine_loop), the reads mesh of phase 6 (superstep,
+SA walk, extend_lr, extend2, global2) and the split tables of phase 7
+(the same and smem1_step).  The last three lines are nvidia-smi's
 name and power limit, the kernels' JSON record (launches, times, bounds,
 per-bucket launches and times) and the result JSON; any failure exits
 non-zero without them.
@@ -130,6 +148,9 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 EMULATE = True   # count visited DP cells by the kernels' host emulation
+SPLIT = True     # check the split-table kernels (another tree may lack them)
+REAL_RPS = {}    # phase 4's timed reads/s by set ("se", "pe")
+SPLIT_PARTS = (2, 4)   # the split kernels' parts on one card
 WIDTHS = {"BWAMEM_TPU_LANES": "8192", "BWAMEM_TPU_SA_SLICE": "32768",
           "BWAMEM_TPU_WAVE_EXT": "16384"}
 DATA = os.path.join(HERE, "tests", "data")
@@ -576,21 +597,12 @@ def check_kernels(label, idx_prefix, fq, rec):
             T(np.full(B, opt.split_width, np.int32)), L, M, OC)
     k_ms, ko = cuda_ms(lambda: tsm.superstep_cuda(*args), 3)
     p_ms, po = cuda_ms(lambda: tsm.superstep_plain(*args), 1, False)
-    over = po[5]
-    if not torch.equal(ko[5], over):
-        raise RuntimeError(f"{label}: superstep over flags differ")
-    ok = ~over
-    if not torch.equal(ko[4][ok], po[4][ok]):
-        raise RuntimeError(f"{label}: superstep n_out differs")
-    slot = (torch.arange(OC, device=dev).unsqueeze(0)
-            < po[4].unsqueeze(1)) & ok.unsqueeze(1)
-    err = max_err([(ko[i][slot], po[i][slot]) for i in range(4)]
-                  + [(ko[4][ok], po[4][ok])])
+    err = superstep_err(ko, po, OC)
     if err:
-        raise RuntimeError(f"{label}: superstep slots differ ({err})")
+        raise RuntimeError(f"{label}: superstep differs ({err})")
     rec["smem_superstep"].append(dict(
         index=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err, lanes=B,
-        over=int(over.sum()), bucket="L128",
+        over=int(po[5].sum()), bucket="L128",
         **device_time(lambda: tsm.superstep_cuda(*args), "superstep_kernel",
                       k_ms),
         **fm_bound(d, tsm.superstep_plain, args, ko)))
@@ -661,6 +673,9 @@ def check_kernels(label, idx_prefix, fq, rec):
     check_sw_kernels(label, eng, bns, opt, reads, cb.flat, pk, rec)
     check_long_kernels(label, eng, bns, opt, (q, qlen), reads, cb.flat, pk,
                        rec)
+    if SPLIT:
+        check_split_kernels(label, fm_host, args, keys, n_keys, eng,
+                            (q, qlen), rec)
     del eng
     torch.cuda.empty_cache()
     say("kernels", index=label, blocks=int(d.n_blocks),
@@ -944,15 +959,12 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
         fb = bound(nbytes(k_args) + nbytes(ko) + OCC_ROW_BYTES * rows,
                    OPS_PER_OCC_ROW * rows)
         ko = [a[:n] for a in ko]
-        over = po[5]
-        ok = ~over
-        slot = (torch.arange(s_L.out_cap, device=dev).unsqueeze(0)
-                < po[4].unsqueeze(1)) & ok.unsqueeze(1)
-        err = max(max_err([(ko[i][slot], po[i][slot]) for i in range(4)]
-                          + [(ko[4][ok], po[4][ok])]),
-                  int(not torch.equal(ko[5], over)))
+        err = superstep_err(ko, po, s_L.out_cap)
         if err:
             raise RuntimeError(f"{label}: superstep L={L} differs ({err})")
+        over = po[5]
+        slot = (torch.arange(s_L.out_cap, device=dev).unsqueeze(0)
+                < po[4].unsqueeze(1)) & ~over.unsqueeze(1)
         full = int((ko[3][slot] == L).sum())
         rec["smem_superstep"].append(dict(
             index=label, bucket=f"L{L}", ms=k_ms, plain_ms=p_ms,
@@ -1021,6 +1033,122 @@ def check_long_kernels(label, eng, bns, opt, q128, reads, flat, pk, rec):
             **device_time(lambda: teb.build_rows_cuda(*args),
                           "build_rows_kernel", k_ms),
             **bound(nbytes(args[:1] + args[3:]) + out_b // 2 + out_b, 0)))
+
+
+OCC4_KEYS = 2 * 8192 * 16   # the sweep's occ4 keys (2 x LANES x M)
+OCC4_TABLE_BYTES = 4 << 30  # the microbench's largest random table
+
+
+def superstep_err(ko, po, out_cap):
+    """The superstep's outputs compared on the slots the consumer reads
+    (its over flags, n_out and slots [0, n_out) of the lanes that did
+    not overflow); 0 where they are equal."""
+    import torch
+    if not torch.equal(ko[5], po[5]):
+        return 1
+    ok = ~po[5]
+    slot = (torch.arange(out_cap, device=po[4].device).unsqueeze(0)
+            < po[4].unsqueeze(1)) & ok.unsqueeze(1)
+    return max_err([(ko[i][slot], po[i][slot]) for i in range(4)]
+                   + [(ko[4][ok], po[4][ok])])
+
+
+def occ4_keys(n_rows, primary, seq_len, n, seed, device):
+    """n occ4 keys: -1, 0, primary and its neighbours, seq_len - 1, the
+    keys of the first and last row of every part of SPLIT_PARTS splits,
+    then keys drawn from [-1, seq_len]."""
+    import torch
+    from bwamem_tpu_torch.ops.fm import SplitTable
+    edge = [-1, 0, primary - 1, primary, primary + 1, seq_len - 1]
+    for parts in SPLIT_PARTS:
+        rows = SplitTable.part_rows(n_rows, parts)
+        for i in range(1, parts):
+            for kk in (i * rows * 128 - 1, i * rows * 128):
+                if 0 <= kk < seq_len:
+                    edge.append(kk + (kk >= primary))
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    k = torch.randint(-1, seq_len + 1, (n,), generator=g, device=device)
+    k[:len(edge)] = torch.tensor(edge, device=device)
+    return k
+
+
+def check_split_kernels(label, fm_host, sargs, keys, n_keys, eng, q128,
+                        rec):
+    """Phase 2, the split tables (`mem --shard-tables`): the superstep
+    (the main path's lanes at L=128), the iterator step (L=128, from the
+    positions check_long_kernels draws), the SA walk (KEY_CAP keys) and
+    occ4 (OCC4_KEYS keys) over the index split into 2 and 4 parts on
+    this card, each held at full width against its plain version over
+    the same parts and against the whole-table kernel (tolerance zero).
+    The whole-table kernel is timed right before each split one, both
+    by CUDA events and by their own device time: the difference is what
+    the part lookup costs.  The bound is the whole-table kernel's: the
+    work is the same."""
+    import numpy as np
+    import torch
+    from bwamem_tpu_torch.ops import fm as tfm, occ as toc, smem as tsm
+    from bwamem_tpu_torch.ops.fm import DeviceFmIndex
+    t0 = time.perf_counter()
+    d, sdr = eng.dfm, eng.seeder
+    dev = d.device
+    B = sdr.lanes
+    q, qlen = q128
+    x = torch.from_numpy((np.random.default_rng(128).random(B) * qlen)
+                         .astype(np.int32)).to(dev)
+    okeys = occ4_keys(d.n_blocks, d.primary_int, d.seq_len_int, OCC4_KEYS,
+                      9, dev)
+    tail = sargs[7:]
+    cases = (   # kernel record, wrapper, plain, args of an index, compare
+        ("smem_superstep", "L128", tsm.superstep_cuda, tsm.superstep_plain,
+         lambda f: (f,) + sargs[1:], lambda a, b: superstep_err(a, b,
+                                                               tail[2])),
+        ("smem1_step", "L128", tsm.smem_iter_step_cuda,
+         tsm.smem_iter_step_plain,
+         lambda f: (f, sargs[1], sargs[2], x) + sargs[3:7]
+         + (tail[0], tail[1], sdr.m_out), lambda a, b: max_err(zip(a, b))),
+        ("sa_walk", None, tfm.sa_walk_cuda, tfm.sa_lookup_batched,
+         lambda f: (f, keys, sdr.sa_max_steps),
+         lambda a, b: max_err(zip(a, b))),
+        ("occ4", None, toc.occ4_cuda, tfm.occ4,
+         lambda f: (f.blocks, f.primary_int, okeys),
+         lambda a, b: max_err([(a, b)])))
+    symbol = dict(SYMBOLS, occ4="occ4_kernel")
+    out = {}
+    for parts in SPLIT_PARTS:
+        sp = DeviceFmIndex.from_host(fm_host).split([dev] * parts)
+        for name, bucket, kern, plain, make, cmp in cases:
+            w_ms, wo = cuda_ms(lambda: kern(*make(d)), 3)
+            k_ms, ko = cuda_ms(lambda: kern(*make(sp)), 3)
+            p_ms, po = cuda_ms(lambda: plain(*make(sp)), 1, False)
+            err = max(cmp(ko, po), cmp(ko, wo))
+            if err:
+                raise RuntimeError(f"{label}: {name} over {parts} parts "
+                                   f"differs ({err})")
+            w_dev, w_key = own_ms(lambda: kern(*make(d)), symbol[name])
+            k_dev, k_key = own_ms(lambda: kern(*make(sp)), symbol[name])
+            if name == "occ4":   # its keys, output and distinct rows
+                kk = okeys - (okeys >= d.primary_int).long()
+                rows = int(torch.unique(kk[okeys >= 0] >> 7).numel())
+                bd = bound(nbytes((okeys, ko)) + OCC_ROW_BYTES * rows,
+                           OPS_PER_OCC_ROW * okeys.numel())
+            else:                # the whole-table record's, same inputs
+                like = [r for r in rec[name] if r.get("index") == label
+                        and r.get("bucket") == bucket and "bound_ms" in r]
+                bd = {k: like[-1][k] for k in ("bound_ms", "bound_by",
+                                               "bound_bytes", "bound_ops")}
+            r = dict(index=label, bucket=f"{bucket or 'main'}_split{parts}",
+                     split=parts, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+                     whole_ms=w_ms, device_ms_by=k_key, device_ms=k_dev,
+                     whole_device_ms=w_dev, lookup_cost_ms=k_dev - w_dev,
+                     **bd)
+            rec[name].append(r)
+            out.setdefault(name, []).append(r)
+        del sp
+        torch.cuda.empty_cache()
+    say("split_kernels", index=label, parts=list(SPLIT_PARTS),
+        keys=int(n_keys), occ4_keys=OCC4_KEYS, results=out,
+        seconds=time.perf_counter() - t0)
 
 
 MAIN_SHAPES = {   # the record of each occ-row kernel in the kernels line
@@ -1118,7 +1246,7 @@ def microbench_sweep(idx_prefix, rec):
 
 
 def main(argv):
-    global EMULATE
+    global EMULATE, SPLIT
     quick = "--quick" in argv
     kernels_only = "--kernels" in argv
     real_runs = int(argv[argv.index("--real") + 1]) if "--real" in argv \
@@ -1137,6 +1265,8 @@ def main(argv):
     sys.path.insert(0, os.path.abspath(root))
     EMULATE = root == HERE   # another tree's package has no emulation
     from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.fm import DeviceFmIndex
+    SPLIT = hasattr(DeviceFmIndex, "split")   # a parent may predate them
 
     # 1. probe
     t0 = time.perf_counter()
@@ -1282,7 +1412,10 @@ def main(argv):
         "the microbench sweep"))
 
     # 6. a reads mesh and two processes, counted on their own
-    multi_card(defaults)
+    mesh_real = multi_card(defaults)
+
+    # 7. the tables split over the mesh, counted on their own
+    split_tables(defaults, mesh_real, rec)
 
     kernels = kernels_line(rec, launches, buckets)
     print(smi)
@@ -1341,6 +1474,12 @@ def kernels_line(rec, launches, buckets):
                              for r in rec[k.name]
                              if "bucket" in r and "bound_ms" in r
                              and r["index"] == main["index"]},
+            # the split tables (phase 2 on the largest index, phase 7's
+            # 4 GiB occ4): each split time beside the whole table's
+            split={r["bucket"]: {key: r.get(key) for key in (
+                "index", "ms", "device_ms", "whole_ms", "whole_device_ms",
+                "lookup_cost_ms", "max_abs_err")}
+                for r in rec[k.name] if "split" in r},
             # align2's i16 pass and the bounds over the cells run, the
             # wrappers' device scratch
             **extra,
@@ -1414,6 +1553,7 @@ def real_size(timed_only=False):
         err, dt = run_mem(args, path)
         say(f"real_{tag}", reads=n_reads, seconds=dt,
             reads_per_s=n_reads / dt, stats=device_stats(err))
+        REAL_RPS[tag] = n_reads / dt
         if timed_only:
             continue
         # again with every extension checked against the scalar twin
@@ -1854,6 +1994,164 @@ def multi_card(defaults):
                                    "kernel_events": seen,
                                    "seconds": prof_s},
         seconds=time.perf_counter() - t1)
+    return real
+
+
+def split_occ4_4gib(dev, rec):
+    """occ4 at OCC4_KEYS keys on the microbench's 4 GiB random table of
+    64-byte rows (microbench.make_table; a 3.1 Gbp index's occ table is
+    ~3.1 GB), whole and split into 4 parts of 1 GiB on the card, through
+    microbench.Bench.gather: equal outputs, each held against its plain
+    version, both timed in this call."""
+    import torch
+    from bwamem_tpu_torch import microbench
+    from bwamem_tpu_torch.ops import occ as toc
+    from bwamem_tpu_torch.ops.fm import SplitTable
+    b = microbench.Bench(dev, seed=4, reps=20, emit=lambda ln: None)
+    rows = OCC4_TABLE_BYTES // 64
+    table = microbench.make_table(rows, 16, b.gen(rows * 16), dev)
+    split = SplitTable.cut(table, [dev] * 4)
+    outs, lines = {}, {}
+
+    def check(kernel, line, out, args, library=None):
+        if kernel != "occ4":     # the whole table's gathers run too
+            return
+        p_ms, po = cuda_ms(lambda: toc.occ4_plain(*args), 1, False)
+        err = max_err([(out, po)])
+        if err:
+            raise RuntimeError(f"occ4 on the 4 GiB table differs from its "
+                               f"plain version ({err})")
+        tag = "split4" if isinstance(args[0], SplitTable) else "whole"
+        outs[tag], lines[tag] = out, dict(line, plain_ms=p_ms)
+        outs["keys"], outs["primary"] = args[2], args[1]
+    b.check = check
+    for tag, t in (("whole", table), ("split4", split), ("whole", table)):
+        b.gather(t, [OCC4_KEYS], f"random_4GiB_{tag}")
+    err = max_err([(outs["split4"], outs["whole"])])
+    if err:
+        raise RuntimeError(f"occ4 on the 4 GiB table: 4 parts differ from "
+                           f"the whole table ({err})")
+    s, w = lines["split4"], lines["whole"]
+    keys = outs["keys"]
+    kk = keys - (keys >= outs["primary"]).long()
+    rows = int(torch.unique(kk[keys >= 0] >> 7).numel())
+    r = dict(index="random_4GiB", bucket="random_4GiB_split4", split=4,
+             ms=s["ms"], device_ms=s["device_ms"], plain_ms=s["plain_ms"],
+             whole_ms=w["ms"], whole_device_ms=w["device_ms"],
+             lookup_cost_ms=s["device_ms"] - w["device_ms"],
+             max_abs_err=err, parts=s["parts"],
+             **bound(nbytes((keys, outs["whole"])) + OCC_ROW_BYTES * rows,
+                     OPS_PER_OCC_ROW * OCC4_KEYS))
+    rec["occ4"].append(r)
+    del table, split
+    torch.cuda.empty_cache()
+    return r
+
+
+def split_tables(defaults, mesh_real, rec):
+    """Phase 7: `mem --shard-tables`, the engine over a reads mesh with
+    its occ table and sampled SA split by rows over the shards (every
+    card when there are two or more, one part each; else two parts on
+    card 0): the SE, SE -a -M and PE goldens and the -v 4 SE trace
+    byte-identical, BWAMEM_TPU_SUPERSTEP=0 on the SE golden, and, unless
+    --quick, the 100k SE and 20k PE sets equal to phase 4's single-card
+    SAM, timed beside phase 4's and phase 6's reads/s; each kernel's
+    launches per card; with two or more cards, each card's device memory
+    after the engine is built (about 1/n of the tables each).  Then occ4
+    on the 4 GiB table split in 4 parts (split_occ4_4gib).  Launch
+    counts are zeroed before the split runs and read after them."""
+    import torch
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.engine import TorchSeedingEngine
+    from bwamem_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    out = os.path.join(HERE, ".smoke_data")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        mesh, ran = make_mesh(), f"{n_cards} cards, a part on each"
+    else:
+        one = torch.device(DEVICE, 0 if DEVICE == "cuda" else None)
+        mesh, ran = (one,) * 2, "2 parts on one card"
+    ref = os.path.join(DATA, "genome.fa")
+    se = os.path.join(DATA, "reads_se.fq")
+    _kernels.reset_counts()
+
+    def engine(fm):
+        """The split engine, and each card's device memory it added."""
+        torch.cuda.synchronize()
+        before = [torch.cuda.memory_allocated(i) for i in range(n_cards)]
+        eng = TorchSeedingEngine(fm, mesh[0], mesh=mesh, shard_tables=True)
+        torch.cuda.synchronize()
+        added = [torch.cuda.memory_allocated(i) - before[i]
+                 for i in range(n_cards)]
+        d = eng.dfm
+        if not eng.shard_tables or len(d.blocks.parts) != len(mesh) or [
+                p.device for p in d.blocks.parts] != list(mesh):
+            raise RuntimeError("split tables: the engine did not split its "
+                               "tables one part per shard")
+        tables = sum(p.numel() * p.element_size()
+                     for t in (d.blocks, d.sa) for p in t.parts)
+        if n_cards >= 2 and max(added) > 1.25 * tables / len(mesh) \
+                + (1 << 20):
+            raise RuntimeError(f"split tables: a card holds more than its "
+                               f"share of the {tables} table bytes: "
+                               f"{added}")
+        return eng, {"table_bytes": tables, "added_by_card": {
+            f"cuda:{i}": a for i, a in enumerate(added)}}
+
+    fm, bns = load_index(ref)
+    eng, mem_small = engine(fm)
+    identical = []
+    for tag, args, golden in GOLDENS + (
+            ("se_v4", ["-v", "4", ref, se], "golden_se_v4.txt"),
+            ("se_superstep0", [ref, se], "golden_se.sam")):
+        path = os.path.join(out, f"split_{tag}.sam")
+        prev = os.environ.get("BWAMEM_TPU_SUPERSTEP")
+        os.environ["BWAMEM_TPU_SUPERSTEP"] = \
+            "0" if tag.endswith("superstep0") else "1"
+        try:
+            engine_mem(eng, fm, bns, [a for a in args if a.endswith(".fq")],
+                       path, [a for a in args if a in ("-a", "-M")],
+                       4 if "-v" in args else 3)
+        finally:
+            if prev is None:
+                os.environ.pop("BWAMEM_TPU_SUPERSTEP")
+            else:
+                os.environ["BWAMEM_TPU_SUPERSTEP"] = prev
+        if sam_body(path) != sam_body(os.path.join(DATA, golden)):
+            raise RuntimeError(f"split {tag}: differs from {golden} "
+                               f"({path})")
+        identical.append(f"{tag}: {golden}")
+    del eng
+    real, mem_big = {}, None
+    if defaults:
+        bfm, bbns = load_index(os.path.join(BIG, "genome.fa"))
+        beng, mem_big = engine(bfm)
+        for tag in ("se", "pe"):
+            args, want, n_reads = defaults[tag]
+            path = os.path.join(BIG, f"split_{tag}.sam")
+            dt = engine_mem(beng, bfm, bbns, args[1:], path)
+            if sam_body(path) != sam_body(want):
+                raise RuntimeError(f"split {tag}: differs from the "
+                                   f"single-card run ({path} vs {want})")
+            real[tag] = {"reads": n_reads, "seconds": dt,
+                         "reads_per_s": n_reads / dt,
+                         "phase4_single_card_reads_per_s": REAL_RPS.get(tag),
+                         "phase6_mesh_reads_per_s":
+                         mesh_real.get(tag, {}).get("reads_per_s")}
+        del beng
+    split = (_kernels.SMEM, _kernels.SA, _kernels.EXTEND, _kernels.EXTEND2,
+             _kernels.GLOBAL2, _kernels.SMEM1)
+    launches = read_counts(split, "the split tables")
+    by_card = read_cards(split[:5], mesh, "the split tables")
+    torch.cuda.empty_cache()
+    occ4 = split_occ4_4gib(mesh[0], rec)
+    say("split_tables", ran_on=ran, shards=[str(d) for d in mesh],
+        identical=identical, real_size=real, launches=launches,
+        launches_by_card=by_card, memory={"bundled": mem_small,
+                                          "ecoli_len": mem_big},
+        occ4_4gib=occ4, seconds=time.perf_counter() - t0)
 
 
 if __name__ == "__main__":

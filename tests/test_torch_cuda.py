@@ -944,3 +944,142 @@ def test_sharded_wrapper_matches_one_card(engine, data_dir, wrapper, kind):
         per_card[d.index] = per_card.get(d.index, 0) + 1
     delta = {c: n - cards0.get(c, 0) for c, n in cards.items()}
     assert {c: n for c, n in delta.items() if n} == per_card
+
+
+# ---- split tables (mem --shard-tables) on the card ----
+
+def _split_index(eng, kind, parts):
+    """The engine's index split into `parts` parts: all on card 0
+    (one_card), or over every card in turn (cards: two or more cards,
+    peer access enabled between them); seen from card 0."""
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.fm import DeviceFmIndex
+    n = torch.cuda.device_count()
+    if kind == "cards":
+        if n < 2:
+            pytest.skip("needs two or more cards")
+        devs = [torch.device("cuda", i % n) for i in range(parts)]
+        for a in range(n):
+            for b in range(n):
+                _kernels.enable_peer(a, b)
+    else:
+        devs = [torch.device("cuda", 0)] * parts
+    return DeviceFmIndex.from_host(eng.fm_host).split(devs)
+
+
+@pytest.mark.parametrize("kind", ["one_card", "cards"])
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("kernel", ["superstep", "iter_step", "sa_walk",
+                                    "occ4"])
+def test_split_kernel_matches_plain(engine, data_dir, kernel, parts, kind):
+    """Each FM kernel over the index split into parts (csrc/fm.cuh
+    row_at) against its plain version over the same parts and against
+    the whole-table kernel, launched without a sync and counted once."""
+    from bwamem_tpu_torch.ops import _kernels, fm as tfm, occ as toc, smem
+    eng, bns = engine
+    s = _split_index(eng, kind, parts)
+    d = eng.dfm
+    dev = torch.device("cuda", 0)
+    T = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(dev)
+    B = 512
+    rng = np.random.default_rng(parts)
+    if kernel in ("superstep", "iter_step"):
+        qp, qlen = _long_queries(bns, B, 128, 7 + parts)
+        lanes = (T(qp), T(qlen))
+        if kernel == "iter_step":
+            lanes += (T((rng.random(B) * qlen).astype(np.int32)),)
+        lanes += (torch.ones(B, dtype=torch.int64, device=dev),
+                  torch.ones(B, dtype=torch.bool, device=dev),
+                  T(np.minimum(29, qlen).astype(np.int32)),
+                  T(np.full(B, 10, np.int32)), 128, 16)
+        if kernel == "superstep":
+            fn, plain, rec = smem.superstep_cuda, smem.superstep_plain, \
+                _kernels.SMEM
+            make = lambda f: (f,) + lanes + (48,)  # noqa: E731
+        else:
+            fn, plain, rec = smem.smem_iter_step_cuda, \
+                smem.smem_iter_step_plain, _kernels.SMEM1
+            make = lambda f: (f,) + lanes + (12,)  # noqa: E731
+    else:
+        rows = s.blocks.rows
+        edge = [r * 128 + o for i in range(1, parts)
+                for r in (i * rows - 1, i * rows) for o in (0, 127)]
+        keys = torch.cat([torch.tensor(
+            edge + [-1, 0, d.primary_int - 1, d.primary_int,
+                    d.primary_int + 1, d.seq_len_int - 1, d.seq_len_int],
+            device=dev), T(rng.integers(0, d.seq_len_int + 1, 8192))])
+        if kernel == "sa_walk":
+            keys = keys.clamp(min=0)
+            fn, plain, rec = tfm.sa_walk_cuda, tfm.sa_lookup_batched, \
+                _kernels.SA
+            make = lambda f: (f, keys, 1024)  # noqa: E731
+        else:
+            fn, plain, rec = toc.occ4_cuda, tfm.occ4, _kernels.OCC4
+            make = lambda f: (f.blocks, f.primary_int, keys)  # noqa: E731
+    n0 = rec.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(*make(s))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert rec.launches == n0 + 1
+    got = got if isinstance(got, tuple) else (got,)
+    for want in (plain(*make(s)), fn(*make(d))):
+        want = want if isinstance(want, tuple) else (want,)
+        if kernel == "superstep":    # the slots the consumer reads
+            ok = ~want[5]
+            slot = (torch.arange(48, device=dev) < want[4].unsqueeze(1)) \
+                & ok.unsqueeze(1)
+            assert torch.equal(got[5], want[5])
+            assert torch.equal(got[4][ok], want[4][ok])
+            got_c, want_c = [a[slot] for a in got[:4]], \
+                [b[slot] for b in want[:4]]
+        else:
+            got_c, want_c = got, want
+        for a, b in zip(got_c, want_c):
+            assert torch.equal(a.long(), b.long())
+
+
+@pytest.mark.parametrize("kind", ["one_card_twice", "cards"])
+@pytest.mark.parametrize("flags,reads,golden", [
+    ([], ["reads_se.fq"], "golden_se.sam"),
+    (["-a", "-M"], ["reads_se.fq"], "golden_se_aM.sam"),
+    ([], ["reads_1.fq", "reads_2.fq"], "golden_pe.sam"),
+], ids=["se", "se_aM", "pe"])
+def test_mem_mesh2_shard_tables_matches_golden(cuda, data_dir, monkeypatch,
+                                               flags, reads, golden, kind):
+    """``mem --mesh 2 --shard-tables`` on the card: over the first two
+    cards (cards), or two shards of card 0 (one_card_twice: make_mesh
+    gives card 0 twice), the tables split in two; byte-identical to the
+    goldens, the split run's kernels counted on card 0."""
+    import io
+    import sys
+    from bwamem_tpu_torch import cli
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.parallel import mesh as tmesh
+    if kind == "cards" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    if kind == "one_card_twice":
+        monkeypatch.setattr(tmesh, "make_mesh", lambda n, device: (
+            torch.device("cuda", 0),) * n)
+    n0 = _kernels.SMEM.by_card.get(0, 0)
+    out, err = io.StringIO(), io.StringIO()
+    old = sys.stdout, sys.stderr
+    sys.stdout, sys.stderr = out, err
+    try:
+        ret = cli.main_mem(["--mesh", "2", "--shard-tables"] + flags + [
+            os.path.join(data_dir, "genome.fa")]
+            + [os.path.join(data_dir, r) for r in reads])
+    finally:
+        sys.stdout, sys.stderr = old
+    assert ret == 0, err.getvalue()
+    assert "occ table and SA split over 2 devices" in err.getvalue()
+    ours = [ln for ln in out.getvalue().split("\n")
+            if not ln.startswith("@PG")]
+    with open(os.path.join(data_dir, golden)) as f:
+        assert ours == [ln for ln in f.read().split("\n")
+                        if not ln.startswith("@PG")]
+    assert _kernels.SMEM.by_card.get(0, 0) > n0

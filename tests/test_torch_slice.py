@@ -103,13 +103,12 @@ def test_package_imports_no_jax():
 
 
 def test_unported_routes_refuse(data_dir):
-    """The options that are not ported are refused (the CLI exits 1):
-    --shard-tables, and the JAX package's --engine and devices."""
+    """The options that are not ported are refused (the CLI exits 1): the
+    JAX package's --engine and devices."""
     from bwamem_tpu_torch import cli
     ref = os.path.join(data_dir, "genome.fa")
     fq = os.path.join(data_dir, "reads_se1.fq")
-    for opt in (["--shard-tables"], ["--engine", "jax"],
-                ["--device", "tpu"]):
+    for opt in (["--engine", "jax"], ["--device", "tpu"]):
         assert run_mem(cli, opt + [ref, fq])[0] == 1
 
 
