@@ -1,13 +1,26 @@
-"""``mem`` on PyTorch/CUDA: the port's command-line entry point.
+"""The port's command line: every command of ``bwamem_tpu.cli`` (the bwa
+command mux, software/top.c:63-118), with ``mem`` on PyTorch/CUDA.
 
-    python -m bwamem_tpu_torch.cli mem [options] <idxbase> <in1.fq> [in2.fq]
+    python -m bwamem_tpu_torch.cli <command> [options]
 
-The options are those of ``bwamem_tpu.cli mem`` (the bwa mem option
-table, ``-v 4``/``-v 5`` tracing included), with ``--device cuda|cpu`` in
-place of ``--engine``.  ``cuda`` runs the seeding, SA-walk, extension,
-global-alignment and local-SW kernels on the GPU and fails when there is
-none; ``cpu`` runs their plain PyTorch versions.  BWAMEM_TPU_CHUNK_BP
-sets the chunk size in bases, as in ``bwamem_tpu.cli``.
+``index``, ``fa2pac``, ``pac2bwt``/``pac2bwtgen``, ``bwtupdate``,
+``bwt2sa``, ``fastmap``, ``pemerge``, ``aln``, ``samse``, ``sampe`` and
+``bwasw`` (``bwtsw2``/``dbwtsw``) run on the host, as in the JAX
+package: their modules here are its own copies, so each output equals
+``bwamem_tpu.cli``'s byte for byte.
+
+``mem`` takes the options of ``bwamem_tpu.cli mem`` (the bwa mem option
+table, ``-v 4``/``-v 5`` tracing included), with ``--device cuda|cpu``
+in place of the JAX engines.  ``cuda`` runs the seeding, SA-walk,
+extension, global-alignment and local-SW kernels on the GPU and fails
+when there is none; ``cpu`` runs their plain PyTorch versions.
+``--engine host`` runs the host oracle with no device at all (no CUDA
+context is made); ``--device``, ``--mesh`` and ``--shard-tables`` then
+change nothing, as ``--mesh`` does under the JAX ``--engine host``.  The
+JAX package's ``--engine auto|tpu|jax`` are refused: ``auto`` there falls
+back to the host when the device fails, which this package never does.
+BWAMEM_TPU_CHUNK_BP sets the chunk size in bases, as in
+``bwamem_tpu.cli``.
 
     --mesh N|auto          shard every launch's lanes over the first N
                            cards (auto: all), the index on each
@@ -27,9 +40,8 @@ sets the chunk size in bases, as in ``bwamem_tpu.cli``.
                            I mod the cards there are (parallel/multihost.py)
     --profile DIR          a torch.profiler trace of the run into DIR
 
-Every other bwa command runs without JAX in ``bwamem_tpu.cli`` already.
-The port imports nothing of that package: the host modules it needs are
-its own copies.
+The port imports nothing of ``bwamem_tpu``: the host modules it needs
+are its own copies.
 """
 
 import json
@@ -38,6 +50,33 @@ import os
 import sys
 
 PACKAGE_VERSION = "0.7.8-r455"  # output-compat version (top.c:10)
+
+
+def _usage():
+    sys.stderr.write(f"""
+Program: bwa (alignment via Burrows-Wheeler transformation)
+Version: {PACKAGE_VERSION}
+Contact: tpu-bwa-mem
+
+Usage:   python -m bwamem_tpu_torch.cli <command> [options]
+
+Command: index         index sequences in the FASTA format
+         mem           BWA-MEM algorithm (--device cuda|cpu,
+                       --engine host)
+         fastmap       identify super-maximal exact matches
+         pemerge       merge overlapping paired ends
+         aln           gapped/ungapped alignment
+         samse         generate alignment (single ended)
+         sampe         generate alignment (paired ended)
+         bwasw         BWA-SW for long queries
+
+         fa2pac        convert FASTA to PAC format
+         pac2bwt       generate BWT from PAC
+         bwtupdate     update .bwt to the new format
+         bwt2sa        generate SA from BWT and Occ
+
+""")
+    return 1
 
 
 def set_rg(s: str):
@@ -77,6 +116,27 @@ def _profiler(trace_dir, device):
                    on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
+def _device_engine(fm, device, mesh_spec, shard_tables):
+    """The port's engine on device, over a reads mesh with --mesh."""
+    from bwamem_tpu_torch.ops.engine import TorchSeedingEngine
+    mesh = None
+    if mesh_spec:   # --mesh N|auto: the lanes over several devices
+        from bwamem_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(None if mesh_spec == "auto" else int(mesh_spec),
+                         device)
+        if len(mesh) > 1:
+            sys.stderr.write("[M::main_mem] reads mesh over %d devices\n"
+                             % len(mesh))
+        else:
+            mesh = None
+    engine = TorchSeedingEngine(fm, device, mesh=mesh,
+                                shard_tables=shard_tables)
+    if engine.shard_tables:
+        sys.stderr.write("[M::main_mem] occ table and SA split over %d "
+                         "devices\n" % len(mesh))
+    return engine
+
+
 def main_mem(argv):
     import getopt as _getopt
     from bwamem_tpu_torch.config import (MemOptions, fill_scmat, MEM_F_PE,
@@ -94,6 +154,7 @@ def main_mem(argv):
     pes0 = None
     verbose = 3
     device = "cuda"
+    host_engine = False
     shard_spec = None
     mesh_spec = dist_spec = profile_dir = shard_tables = None
     try:
@@ -201,9 +262,11 @@ def main_mem(argv):
         elif c == "device":
             device = val
         elif c == "engine":
-            sys.stderr.write("[E::main_mem] --engine is --device cuda|cpu "
-                             "here\n")
-            return 1
+            if val != "host":
+                sys.stderr.write("[E::main_mem] --engine host, or --device "
+                                 "cuda|cpu for the device engine\n")
+                return 1
+            host_engine = True
         elif c == "shard":  # i/n: process chunks i, i+n, ... of the input
             parts = val.split("/")
             shard_spec = (int(parts[0]), int(parts[1]))
@@ -249,13 +312,14 @@ def main_mem(argv):
         pool = WorkerPool(fm, bns, pac, opt.n_threads,
                           index_prefix=args[0])
 
-    multihost = None
+    multihost = engine = None
     try:
-        import torch
-        from bwamem_tpu_torch.ops.engine import TorchSeedingEngine
-        if device == "cuda" and not torch.cuda.is_available():
-            sys.stderr.write("[E::main_mem] --device cuda: no CUDA device\n")
-            return 1
+        if not host_engine and device == "cuda":
+            import torch
+            if not torch.cuda.is_available():
+                sys.stderr.write("[E::main_mem] --device cuda: no CUDA "
+                                 "device\n")
+                return 1
         if dist_spec is not None:
             # the rendezvous after the pool's fork; --shard defaults to
             # this process's stripe (JAX cli.py:221-233)
@@ -263,27 +327,16 @@ def main_mem(argv):
             multihost.initialize(*dist_spec)
             if shard_spec is None:
                 shard_spec = (dist_spec[2], dist_spec[1])
-            device = multihost.local_device(device)
-            if device.type == "cuda":
-                torch.cuda.set_device(device)
+            if not host_engine:
+                device = multihost.local_device(device)
+                if device.type == "cuda":
+                    torch.cuda.set_device(device)
             sys.stderr.write("[M::main_mem] distributed: process %d of %d"
                              " on %s\n" % (dist_spec[2], dist_spec[1],
-                                           device))
-        mesh = None
-        if mesh_spec:   # --mesh N|auto: the lanes over several devices
-            from bwamem_tpu_torch.parallel.mesh import make_mesh
-            mesh = make_mesh(None if mesh_spec == "auto" else int(mesh_spec),
-                             device)
-            if len(mesh) > 1:
-                sys.stderr.write("[M::main_mem] reads mesh over %d devices\n"
-                                 % len(mesh))
-            else:
-                mesh = None
-        engine = TorchSeedingEngine(fm, device, mesh=mesh,
-                                    shard_tables=shard_tables)
-        if engine.shard_tables:
-            sys.stderr.write("[M::main_mem] occ table and SA split over %d "
-                             "devices\n" % len(mesh))
+                                           "the host" if host_engine
+                                           else device))
+        if not host_engine:
+            engine = _device_engine(fm, device, mesh_spec, shard_tables)
 
         reader = make_chunk_reader(args[1],
                                    args[2] if len(args) > 2 else None)
@@ -334,7 +387,8 @@ def main_mem(argv):
                 out.write(r.sam)
 
         from bwamem_tpu_torch.core.pipeline import process_chunk_stream
-        with _profiler(profile_dir, engine.device):
+        with _profiler(profile_dir, "cpu" if engine is None
+                       else engine.device):
             process_chunk_stream(opt, fm, bns, pac, chunk_iter(), pes0,
                                  rg_id or "", engine, verbose, pool=pool,
                                  on_start=on_start, emit=emit)
@@ -343,7 +397,7 @@ def main_mem(argv):
             pool.close()
         if multihost is not None:
             multihost.shutdown()
-    if verbose >= 3:
+    if engine is not None and verbose >= 3:
         # the reference manager's shutdown line (software/fastmap.c:427)
         sys.stderr.write("[M::main_mem] total device kernel time %fs over"
                          " %d dispatches\n" % (engine.kernel_time,
@@ -356,17 +410,204 @@ def main_mem(argv):
     return 0
 
 
+def main_fa2pac(argv):
+    """fa2pac command (software/bntseq.c:297-314): FASTA -> .pac/.ann/.amb,
+    both-strand pack by default, forward-only with -f."""
+    import getopt as _getopt
+    from .index.bntseq import fasta2bntseq, dump_pac, dump_ann_amb
+    opts, args = _getopt.getopt(argv, "f")
+    for_only = any(c == "-f" for c, _ in opts)
+    if not args:
+        sys.stderr.write("Usage: bwa fa2pac [-f] <in.fasta> [<out.prefix>]\n")
+        return 1
+    prefix = args[1] if len(args) > 1 else args[0]
+    bns, pac = fasta2bntseq(args[0], for_only=for_only)
+    dump_ann_amb(bns, prefix)
+    dump_pac(pac, bns.l_pac, prefix + ".pac")
+    return 0
+
+
+def main_pac2bwt(argv):
+    """pac2bwt command (software/bwtindex.c:62-124): .pac -> raw .bwt
+    (no occ interleaving; bwtupdate required before use).  The -d
+    (libdivsufsort) flag is accepted; our SA-IS builder covers both."""
+    import getopt as _getopt
+    import numpy as np
+    from .index.bntseq import load_pac, unpack_bases
+    from .index.fmindex import FmIndex
+    from .index.suffix_array import suffix_array
+    opts, args = _getopt.getopt(argv, "d")
+    if len(args) < 2:
+        sys.stderr.write("Usage: bwa pac2bwt [-d] <in.pac> <out.bwt>\n")
+        return 1
+    pac, l_pac = load_pac(args[0])
+    bases = unpack_bases(pac, l_pac)
+    fm = FmIndex()
+    fm.seq_len = int(l_pac)
+    counts = np.bincount(bases, minlength=4)
+    fm.L2 = np.zeros(5, dtype=np.int64)
+    fm.L2[1:] = np.cumsum(counts)
+    sa_full = suffix_array(bases)
+    fm.primary = int(np.nonzero(sa_full == 0)[0][0])
+    nz = np.concatenate((sa_full[:fm.primary], sa_full[fm.primary + 1:]))
+    bwt_str = bases[nz - 1]
+    # raw 2-bit pack, 16 bases/word MSB-first (bwtindex.c:99-101)
+    n_words = (l_pac + 15) >> 4
+    padded = np.zeros(n_words << 4, dtype=np.uint32)
+    padded[:l_pac] = bwt_str
+    shifts = (15 - np.arange(16, dtype=np.uint32)) * 2
+    fm.bwt = (padded.reshape(-1, 16) << shifts[None, :]).sum(
+        axis=1, dtype=np.uint32)
+    fm.dump_bwt(args[1])
+    return 0
+
+
+def main_bwtupdate(argv):
+    """bwtupdate command (software/bwtindex.c:128-164): interleave occ
+    checkpoints into a raw .bwt, in place."""
+    import numpy as np
+    from .index.fmindex import FmIndex, interleave_occ
+    if len(argv) < 1:
+        sys.stderr.write("Usage: bwa bwtupdate <the.bwt>\n")
+        return 1
+    fm = FmIndex.restore(argv[0])
+    n_words = (fm.seq_len + 15) >> 4
+    words = fm.bwt[:n_words]
+    shifts = (15 - np.arange(16, dtype=np.uint32)) * 2
+    bwt_str = ((words[:, None] >> shifts[None, :]) & 3).astype(
+        np.uint8).reshape(-1)[:fm.seq_len]
+    fm.bwt = interleave_occ(bwt_str, fm.seq_len)
+    fm.dump_bwt(argv[0])
+    return 0
+
+
+def main_bwt2sa(argv):
+    """bwt2sa command (software/bwtindex.c:166-185): compute the sampled
+    suffix array from an occ-interleaved .bwt by walking inverse Psi
+    (bwt_cal_sa, software/bwt.c:80-102)."""
+    import getopt as _getopt
+    import numpy as np
+    from .index.fmindex import FmIndex
+    opts, args = _getopt.getopt(argv, "i:")
+    sa_intv = 32
+    for c, v in opts:
+        if c == "-i":
+            sa_intv = int(v)
+    if len(args) < 2:
+        sys.stderr.write("Usage: bwa bwt2sa [-i 32] <in.bwt> <out.sa>\n")
+        return 1
+    fm = FmIndex.restore(args[0])
+    n_sa = (fm.seq_len + sa_intv) // sa_intv
+    fm.sa_intv = sa_intv
+    fm.sa = np.zeros(n_sa, dtype=np.int64)
+    isa, sa_val = 0, fm.seq_len
+    for _ in range(fm.seq_len):
+        if isa % sa_intv == 0:
+            fm.sa[isa // sa_intv] = sa_val
+        sa_val -= 1
+        isa = fm.inv_psi(isa)
+    if isa % sa_intv == 0:
+        fm.sa[isa // sa_intv] = sa_val
+    fm.sa[0] = -1
+    fm.dump_sa(args[1])
+    return 0
+
+
+def main_index(argv):
+    import getopt as _getopt
+    from .index import build_index
+    prefix = None
+    opts, args = _getopt.getopt(argv, "6a:p:")
+    for c, val in opts:
+        if c == "-p":
+            prefix = val
+    if not args:
+        sys.stderr.write("Usage: bwa index [-p prefix] <in.fasta>\n")
+        return 1
+    build_index(args[0], prefix or args[0])
+    return 0
+
+
+def main_fastmap(argv):
+    import getopt as _getopt
+    from .index import load_index
+    from .io.fastq import parse_fastx
+    from .core.fastmap import run_fastmap
+    min_iwidth, min_len, split_width, print_seq = 20, 17, 0, False
+    opts, args = _getopt.getopt(argv, "w:l:ps:")
+    for c, val in opts:
+        if c == "-s":
+            split_width = int(val)
+        elif c == "-p":
+            print_seq = True
+        elif c == "-w":
+            min_iwidth = int(val)
+        elif c == "-l":
+            min_len = int(val)
+    if len(args) < 2:
+        sys.stderr.write("Usage: bwa fastmap [-p] [-s splitWidth] [-l minLen]"
+                         " [-w maxSaSize] <idxbase> <in.fq>\n")
+        return 1
+    fm, bns = load_index(args[0])
+    reads = ((r.name, r.seq, r.qual) for r in parse_fastx(args[1]))
+    run_fastmap(fm, bns, reads, sys.stdout, min_iwidth, min_len,
+                split_width, print_seq)
+    return 0
+
+
+def main_pemerge(argv):
+    from .core.pemerge import main_pemerge as _pm
+    return _pm(argv)
+
+
+def main_aln(argv):
+    from .legacy.aln_cli import main_aln as _aln
+    return _aln(argv)
+
+
+def main_samse(argv):
+    from .legacy.samse import main_samse as _se
+    return _se(argv)
+
+
+def main_sampe(argv):
+    from .legacy.sampe import main_sampe as _pe
+    return _pe(argv)
+
+
+def main_bwasw(argv):
+    from .legacy.bwasw import main_bwasw as _sw
+    return _sw(argv)
+
+
 def main(argv=None):
     import time
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] != "mem":
-        sys.stderr.write("Usage: python -m bwamem_tpu_torch.cli mem [options]"
-                         " <idxbase> <in1.fq> [in2.fq]\n"
-                         "(the other bwa commands: python -m bwamem_tpu.cli)"
-                         "\n")
-        return 1
+    if not argv:
+        return _usage()
     t_real = time.perf_counter()
-    ret = main_mem(argv[1:])
+    cmd, rest = argv[0], argv[1:]
+    dispatch = {
+        "index": main_index,
+        "mem": main_mem,
+        "fastmap": main_fastmap,
+        "fa2pac": main_fa2pac,
+        "pac2bwt": main_pac2bwt,
+        "pac2bwtgen": main_pac2bwt,  # same artifact; our SA-IS covers both
+        "bwtupdate": main_bwtupdate,
+        "bwt2sa": main_bwt2sa,
+        "pemerge": main_pemerge,
+        "aln": main_aln,
+        "samse": main_samse,
+        "sampe": main_sampe,
+        "bwasw": main_bwasw,
+        "bwtsw2": main_bwasw,
+        "dbwtsw": main_bwasw,
+    }
+    if cmd not in dispatch:
+        sys.stderr.write(f"[main] unrecognized command '{cmd}'\n")
+        return 1
+    ret = dispatch[cmd](rest)
     sys.stdout.flush()
     if ret == 0:
         sys.stderr.write("[main] Version: %s\n" % PACKAGE_VERSION)

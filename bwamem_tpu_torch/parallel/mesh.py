@@ -24,12 +24,14 @@ bounds and result, and the seeder takes each as a group of its own.  A
 kernel's launches per card are counted where it launches
 (``_kernels.Kernel.by_card``), not here.
 
-``pad_to_shards``, ``pestat_histograms``, ``sharded_smem1``,
-``sharded_sa_lookup``, ``ShardedKernels.smem1`` and ``READS_AXIS`` are
-ports of the JAX module's functions that ``mem`` does not call: the
+``pestat_histograms``, ``sharded_smem1`` and ``sharded_sa_lookup`` are
+ports of the JAX module's functions that ``mem`` does not call (the
 insert-size statistics are computed per chunk on the host, and the
 iterator steps of ``BWAMEM_TPU_SUPERSTEP=0`` run on the mesh's first
-device, as in the JAX engine.  The tests hold them to the JAX functions.
+device, as in the JAX engine); the sharded dry run of graft_entry.py
+calls them, as the JAX ``__graft_entry__.py`` does.  ``pad_to_shards``
+and ``READS_AXIS`` are ported for parity.  The tests hold them to the
+JAX functions.
 
 Row-split tables (``ShardedKernels(..., shard_tables=True)``, ``mem
 --shard-tables``, the JAX package's ``shard_tables=True``): the occ
@@ -114,7 +116,7 @@ def local_pestat(isize: torch.Tensor, orient: torch.Tensor):
 
 
 def pestat_histograms(mesh):
-    """The JAX mesh's reduction across shards (no caller in ``mem``):
+    """The JAX mesh's reduction across shards (graft_entry's dry run):
     insert-size observations (isize int64[B], orientation int32[B], -1 =
     none) split over the mesh, each shard's counts and histogram
     (local_pestat) on its device, summed over the shards on the mesh's
@@ -277,7 +279,7 @@ _GLOBAL2_LANES = (0, 1, 2, 3, 9)
 def sharded_smem1(mesh, dfm: DeviceFmIndex, L: int, M: int,
                   M_OUT: Optional[int] = None):
     """One SMEM iterator step sharded over the reads axis, the index
-    replicated (JAX parallel/mesh.py:39; no caller in ``mem``): returns
+    replicated (JAX parallel/mesh.py:39; graft_entry's dry run): returns
     fn(q_pk, qlen, x, min_intv, active, split_len, split_width) with
     Lanes outputs, those of ops.smem.smem_iter_step."""
     sk = ShardedKernels(mesh, dfm)
@@ -290,7 +292,8 @@ def sharded_smem1(mesh, dfm: DeviceFmIndex, L: int, M: int,
 
 def sharded_sa_lookup(mesh, dfm: DeviceFmIndex, max_steps: int = 128):
     """The batched SA walk sharded over the reads axis (JAX
-    parallel/mesh.py:64; ``mem`` calls ShardedKernels.sa_lookup instead):
+    parallel/mesh.py:64; graft_entry's dry run; ``mem`` calls
+    ShardedKernels.sa_lookup instead):
     returns fn(k) -> (vals, over) as Lanes."""
     sk = ShardedKernels(mesh, dfm)
 

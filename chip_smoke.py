@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (bwamem_tpu_torch) on one GPU.
 
     python3 chip_smoke.py           # all phases, one GPU
-    python3 chip_smoke.py --quick   # phases 1-3 and 5-7 on the bundled
+    python3 chip_smoke.py --quick   # phases 1-3 and 5-8 on the bundled
                                     # genome
     python3 chip_smoke.py --kernels [--root DIR]   # phases 1-2 only
                                     # (--root: the package of another tree,
@@ -122,6 +122,26 @@ Phases, each printing one line with its own numbers and seconds:
    at most its share of the tables); occ4 on the 4 GiB random table of
    the microbench split in 4 parts of 1 GiB against the whole table, both
    timed.  ``--quick`` keeps the goldens and the 4 GiB occ4.
+
+8. commands: the port's other commands and entry points, each in a
+   process of its own, as a user starts them (without this script's
+   launch widths): ``python -m bwamem_tpu_torch.cli index`` on a copy of
+   the 4.64 Mbp genome, every artifact byte-identical to
+   tools/make_biggenome.py's; then all at once on the host: the staged
+   fa2pac, pac2bwt, bwtupdate, bwt2sa on the bundled genome
+   (tests/data/genome.fa.*), fastmap, aln (SE, r1, r2), samse, sampe and
+   bwasw against the goldens, pemerge against ``bwamem_tpu.cli``'s, and
+   aln + samse on 1,000 reads of phase 4's SE set against
+   ``bwamem_tpu.cli``'s; ``mem --engine host`` on the SE golden with no
+   CUDA context at exit; ``python -m bwamem_tpu_torch.graft_entry`` (two
+   shards on card 0 with one card; its own launch counts, the superstep,
+   SA walk, iterator step and extend_lr each above 0); ``python -m
+   bwamem_tpu_torch.bench`` SE and PE on phase 4's dataset with
+   BWAMEM_TPU_BENCH_CHUNKS=2 (its JSON lines and stage lines repeated);
+   ``python -m bwamem_tpu_torch.run_eval`` on that dataset against phase
+   4's host SAMs, PASS on both.  The line has each step's seconds.
+   ``--quick`` keeps the bundled-genome steps, ``mem --engine host`` and
+   the dry run.
 
 Launch counts are zeroed just before each path and read just after: the
 default flat route (goldens, real size, long reads: superstep, SA walk
@@ -1417,6 +1437,9 @@ def main(argv):
     # 7. the tables split over the mesh, counted on their own
     split_tables(defaults, mesh_real, rec)
 
+    # 8. the other commands and the entry points, each in its own process
+    commands(quick)
+
     kernels = kernels_line(rec, launches, buckets)
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -1713,7 +1736,7 @@ def seed_rich():
     if not os.path.exists(os.path.join(REP, "reads_2.fq")):
         for cmd in (["tools/make_gbp_fasta.py", REP, "--mbp", "16",
                      "--repeats"],
-                    ["-m", "bwamem_tpu.cli", "index", fa],
+                    ["-m", "bwamem_tpu_torch.cli", "index", fa],
                     ["tools/sample_reads.py", fa] + REP_READS):
             subprocess.run([sys.executable] + cmd, check=True, cwd=HERE,
                            stdout=subprocess.DEVNULL,
@@ -2152,6 +2175,237 @@ def split_tables(defaults, mesh_real, rec):
         launches_by_card=by_card, memory={"bundled": mem_small,
                                           "ecoli_len": mem_big},
         occ4_4gib=occ4, seconds=time.perf_counter() - t0)
+
+
+# phase 8: the port's other commands and entry points, each in a process
+# of its own (what a user runs); the JAX package's CLI, where it is the
+# reference, too
+PORT_CLI = "bwamem_tpu_torch.cli"
+JAX_CLI = "bwamem_tpu.cli"
+INDEX_EXTS = (".bwt", ".pac", ".ann", ".amb", ".sa")
+N_ALN_BIG = 1000     # reads of phase 4's SE set through aln + samse
+BENCH_CHUNKS = "2"   # BWAMEM_TPU_BENCH_CHUNKS for the bench at 4.64 Mbp
+
+
+def command_env():
+    """The environment of a command as a user starts it: without the
+    launch widths this script sets for its own phases."""
+    return {k: v for k, v in os.environ.items() if k not in WIDTHS}
+
+
+def run_module(module, args, out_path, env=None, code=None):
+    """`python -m module args` (or `python -c code`) in a fresh process,
+    stdout to out_path; (stderr, seconds).  A non-zero exit fails."""
+    cmd = [sys.executable] + (["-c", code] if code else ["-m", module]) \
+        + ([] if code else args)
+    t0 = time.perf_counter()
+    with open(out_path, "wb") as f:
+        res = subprocess.run(cmd, stdout=f, stderr=subprocess.PIPE,
+                             cwd=HERE, env=env or command_env(), timeout=600)
+    dt = time.perf_counter() - t0
+    err = res.stderr.decode(errors="replace")
+    if res.returncode:
+        raise RuntimeError(f"{cmd[2:]} exited {res.returncode}:\n"
+                           f"{err[-3000:]}")
+    return err, dt
+
+
+def run_jobs(jobs):
+    """Jobs of host commands, all at once (the commands of one job in
+    order): {name: (module, args, out_path) list}.  Returns {name:
+    seconds}, each job's wall time among the others."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(steps):
+        t0 = time.perf_counter()
+        for module, args, out in steps:
+            run_module(module, args, out)
+        return time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+        futs = {name: ex.submit(one, steps) for name, steps in jobs.items()}
+        return {name: f.result() for name, f in futs.items()}
+
+
+def same_bytes(a, b):
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return f.read() == g.read()
+
+
+def check_same(pairs, what):
+    """Each (ours, reference, compare) must agree."""
+    bad = [(a, b) for a, b, cmp in pairs if not cmp(a, b)]
+    if bad:
+        raise RuntimeError(f"{what}: outputs differ: {bad}")
+
+
+def sam_same(a, b):
+    return sam_body(a) == sam_body(b)
+
+
+def commands(quick):
+    """Phase 8: the port's index at 4.64 Mbp against tools/make_biggenome.py's
+    artifacts; the staged index commands, fastmap, aln, samse, sampe,
+    bwasw and pemerge on tests/data against the goldens or the JAX CLI,
+    with aln + samse on phase 4's reads against the JAX CLI; mem --engine
+    host with CUDA never initialised; the graft entry's dry run on the
+    card; the bench and run_eval on phase 4's dataset.  `quick` keeps the
+    bundled-genome steps and the dry run."""
+    t_phase = time.perf_counter()
+    out = os.path.join(HERE, ".smoke_data", "commands")
+    os.makedirs(out, exist_ok=True)
+    seconds, identical = {}, []
+
+    def o(name):
+        return os.path.join(out, name)
+
+    def d(name):
+        return os.path.join(DATA, name)
+
+    if not quick:   # the 4.64 Mbp index, alone (its build time is kept)
+        fa = o("genome.fa")
+        with open(os.path.join(BIG, "genome.fa"), "rb") as f, \
+                open(fa, "wb") as g:
+            g.write(f.read())
+        _, seconds["index_4.64Mbp"] = run_module(PORT_CLI, ["index", fa],
+                                                 o("index.log"))
+        exts = INDEX_EXTS + ((".sa8",) if os.path.exists(
+            os.path.join(BIG, "genome.fa.sa8")) else ())
+        check_same([(fa + e, os.path.join(BIG, "genome.fa") + e, same_bytes)
+                    for e in exts], "index at 4.64 Mbp")
+        identical.append("index at 4.64 Mbp: " + " ".join(exts))
+
+    # the host commands, all at once
+    st = o("staged")
+    with open(d("genome.fa"), "rb") as f, open(st + ".fa", "wb") as g:
+        g.write(f.read())
+    jobs = {
+        "staged_index": [
+            (PORT_CLI, ["fa2pac", st + ".fa", st], o("fa2pac.log")),
+            (PORT_CLI, ["pac2bwt", st + ".pac", st + ".bwt"],
+             o("pac2bwt.log")),
+            (PORT_CLI, ["bwtupdate", st + ".bwt"], o("bwtupdate.log")),
+            (PORT_CLI, ["bwt2sa", "-i", "32", st + ".bwt", st + ".sa"],
+             o("bwt2sa.log")),
+            (PORT_CLI, ["fa2pac", "-f", st + ".fa", st + "_fwd"],
+             o("fa2pac_f.log"))],
+        "fastmap": [(PORT_CLI, ["fastmap", d("genome.fa"), d("reads_se.fq")],
+                     o("fastmap.txt"))],
+        "samse": [(PORT_CLI, ["samse", d("genome.fa"), d("golden_se.sai"),
+                              d("reads_se.fq")], o("samse.sam"))],
+        "sampe": [(PORT_CLI, ["sampe", d("genome.fa"), d("golden_r1.sai"),
+                              d("golden_r2.sai"), d("reads_1.fq"),
+                              d("reads_2.fq")], o("sampe.sam"))],
+        "bwasw": [(PORT_CLI, ["bwasw", d("genome.fa"), d("reads_se.fq")],
+                   o("bwasw.sam"))],
+        "pemerge": [(PORT_CLI, ["pemerge", d("reads_1.fq"), d("reads_2.fq")],
+                     o("pemerge.fq"))],
+        "pemerge_jax": [(JAX_CLI, ["pemerge", d("reads_1.fq"),
+                                   d("reads_2.fq")], o("pemerge_jax.fq"))],
+    }
+    for tag, fq in (("se", "reads_se.fq"), ("r1", "reads_1.fq"),
+                    ("r2", "reads_2.fq")):
+        jobs[f"aln_{tag}"] = [(PORT_CLI, ["aln", d("genome.fa"), d(fq)],
+                               o(f"aln_{tag}.sai"))]
+    if not quick:
+        sub = head_fastq(os.path.join(BIG, "reads_se.fq"),
+                         o(f"big_{N_ALN_BIG}.fq"), N_ALN_BIG)
+        big = os.path.join(BIG, "genome.fa")
+        for name, module in (("aln_samse_big", PORT_CLI),
+                             ("aln_samse_big_jax", JAX_CLI)):
+            jobs[name] = [(module, ["aln", big, sub], o(name + ".sai")),
+                          (module, ["samse", big, o(name + ".sai"), sub],
+                           o(name + ".sam"))]
+    seconds.update(run_jobs(jobs))
+    ref = d("genome.fa")
+    check_same([(st + e, ref + e, same_bytes) for e in (".bwt", ".sa")]
+               + [(st + "_fwd" + e, ref + e, same_bytes)
+                  for e in (".pac", ".ann", ".amb")], "staged index")
+    check_same([(o("fastmap.txt"), d("golden_fastmap.txt"), same_bytes),
+                (o("aln_se.sai"), d("golden_se.sai"), same_bytes),
+                (o("aln_r1.sai"), d("golden_r1.sai"), same_bytes),
+                (o("aln_r2.sai"), d("golden_r2.sai"), same_bytes),
+                (o("samse.sam"), d("golden_samse.sam"), sam_same),
+                (o("sampe.sam"), d("golden_sampe.sam"), sam_same),
+                (o("bwasw.sam"), d("golden_bwasw.sam"), sam_same),
+                (o("pemerge.fq"), o("pemerge_jax.fq"), same_bytes)],
+               "the bundled commands")
+    identical += ["staged index: .bwt .sa .pac .ann .amb",
+                  "fastmap, aln se/r1/r2, samse, sampe, bwasw: the goldens",
+                  "pemerge: the JAX CLI's"]
+    if not quick:
+        check_same([(o("aln_samse_big.sai"), o("aln_samse_big_jax.sai"),
+                     same_bytes),
+                    (o("aln_samse_big.sam"), o("aln_samse_big_jax.sam"),
+                     sam_same)], f"aln + samse on {N_ALN_BIG} reads")
+        identical.append(f"aln + samse on {N_ALN_BIG} reads of the 4.64 "
+                         "Mbp set: the JAX CLI's")
+
+    # mem --engine host: the golden, and no CUDA context in the process
+    argv = [PORT_CLI, "mem", "--engine", "host", ref, d("reads_se.fq")]
+    code = ("import atexit, runpy, sys\n"
+            "def report():\n"
+            "    t = sys.modules.get('torch')\n"
+            "    sys.stderr.write('CUDA_INITIALIZED %%s\\n'\n"
+            "                     %% bool(t and t.cuda.is_initialized()))\n"
+            "atexit.register(report)\n"
+            "sys.argv = %r\n"
+            "runpy.run_module(%r, run_name='__main__', alter_sys=True)\n"
+            % (argv, PORT_CLI))
+    err, seconds["mem_engine_host"] = run_module(None, None, o("host.sam"),
+                                                 code=code)
+    if "CUDA_INITIALIZED False" not in err:
+        raise RuntimeError("mem --engine host initialised CUDA:\n"
+                           + err[-2000:])
+    check_same([(o("host.sam"), d("golden_se.sam"), sam_same)],
+               "mem --engine host")
+    identical.append("mem --engine host: golden_se.sam, CUDA never "
+                     "initialised")
+
+    # the compile check and dry run on the card
+    _, seconds["graft_entry"] = run_module("bwamem_tpu_torch.graft_entry",
+                                           [], o("graft_entry.json"))
+    with open(o("graft_entry.json")) as f:
+        graft = json.loads(f.read().splitlines()[-1])
+    idle = [k for k in ("smem1_step", "smem_superstep", "sa_walk",
+                        "extend_lr") if not graft["launches"][k]]
+    if not graft["ok"] or idle:
+        raise RuntimeError(f"graft_entry: {idle} did not launch: {graft}")
+
+    bench, run_eval = {}, None
+    if not quick:
+        # the bench, SE and PE, on phase 4's dataset, its chunks cut
+        for tag, pe in (("se", ""), ("pe", "1")):
+            env = dict(command_env(), BWAMEM_TPU_BENCH_DATA=BIG,
+                       BWAMEM_TPU_BENCH_CHUNKS=BENCH_CHUNKS,
+                       BWAMEM_TPU_BENCH_STAGES="1", BWAMEM_TPU_BENCH_PE=pe)
+            err, seconds[f"bench_{tag}"] = run_module(
+                "bwamem_tpu_torch.bench", [], o(f"bench_{tag}.json"), env)
+            with open(o(f"bench_{tag}.json")) as f:
+                lines = f.read().splitlines()
+            if len(lines) != 1:
+                raise RuntimeError(f"bench {tag}: {len(lines)} stdout lines")
+            bench[tag] = {"line": json.loads(lines[0]),
+                          "env": {"BWAMEM_TPU_BENCH_CHUNKS": BENCH_CHUNKS},
+                          "stages": [ln for ln in err.splitlines()
+                                     if ln.startswith(("[bench] workload",
+                                                       "[bench] pass",
+                                                       "[bench] stages"))]}
+        # one process: the diffs against phase 4's host SAMs, then a
+        # one-chunk bench of each
+        _, seconds["run_eval"] = run_module(
+            "bwamem_tpu_torch.run_eval",
+            [BIG, "--n-diff", str(N_DIFF_SE), "--se-host",
+             os.path.join(BIG, "diff_host_se.sam"), "--pe-host",
+             os.path.join(BIG, "diff_host_pe.sam"), "--bench-chunks", "1"],
+            o("run_eval.txt"))
+        with open(o("run_eval.txt")) as f:
+            run_eval = f.read().splitlines()
+        passed = [ln.split()[1] for ln in run_eval if ln.startswith("PASS")]
+        if sorted(passed) != ["pe", "se"]:
+            raise RuntimeError(f"run_eval: {run_eval}")
+    say("commands", seconds=seconds, identical=identical,
+        graft_entry=graft, bench=bench, run_eval=run_eval,
+        phase_seconds=time.perf_counter() - t_phase)
 
 
 if __name__ == "__main__":

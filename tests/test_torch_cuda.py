@@ -1083,3 +1083,44 @@ def test_mem_mesh2_shard_tables_matches_golden(cuda, data_dir, monkeypatch,
         assert ours == [ln for ln in f.read().split("\n")
                         if not ln.startswith("@PG")]
     assert _kernels.SMEM.by_card.get(0, 0) > n0
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_graft_entry_dryrun_on_card(cuda, capsys, shards):
+    """python -m bwamem_tpu_torch.graft_entry on the card (n shards on
+    card 0 where there are fewer cards): its checks pass, and the
+    iterator-step, superstep, SA-walk and extension kernels launched."""
+    import json
+    from bwamem_tpu_torch import graft_entry
+    assert graft_entry.main(["--shards", str(shards)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    got = json.loads(lines[0])
+    assert got["ok"] is True and got["dryrun"]["rescued"]
+    for name in ("smem1_step", "smem_superstep", "sa_walk", "extend_lr"):
+        assert got["launches"][name] > 0, name
+
+
+@pytest.mark.parametrize("pe", [False, True], ids=["se", "pe"])
+def test_bench_on_card(cuda, capsys, monkeypatch, pe):
+    """python -m bwamem_tpu_torch.bench on the card, one chunk and one
+    pass of the bundled reads at the bench's widths: one JSON line, and
+    the seeding and extension kernels launched."""
+    import json
+    from bwamem_tpu_torch import bench
+    from bwamem_tpu_torch.ops import _kernels
+    for key, val in bench.WIDTHS.items():
+        monkeypatch.setenv(key, val)
+    for key, val in (("CHUNKS", "1"), ("PASSES", "1")):
+        monkeypatch.setenv("BWAMEM_TPU_BENCH_" + key, val)
+    if pe:
+        monkeypatch.setenv("BWAMEM_TPU_BENCH_PE", "1")
+    n0 = {k.name: k.launches for k in (_kernels.SMEM, _kernels.EXTEND)}
+    assert bench.main([]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    got = json.loads(lines[0])
+    assert got["metric"] == "mem_align_throughput" + ("_pe" if pe else "")
+    assert got["value"] > 0
+    for k in (_kernels.SMEM, _kernels.EXTEND):
+        assert k.launches > n0[k.name], k.name

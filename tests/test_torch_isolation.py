@@ -6,7 +6,8 @@ of ``chip_smoke.py`` finds no import of ``jax``, ``jaxlib``,
 included, and ``__import__``/``importlib.import_module`` of a literal
 name).  At run time: ``python -m bwamem_tpu_torch.cli mem --device cpu``
 on the bundled SE reads writes the golden SAM with none of them in
-``sys.modules`` at exit.  ``chip_smoke.py`` may still start
+``sys.modules`` at exit, and so do the host commands, ``mem --engine
+host`` and ``python -m bwamem_tpu_torch.graft_entry``.  ``chip_smoke.py`` may still start
 ``bwamem_tpu.cli`` in a separate process, for the reference output it
 diffs against; that is not an import."""
 
@@ -58,6 +59,52 @@ def test_the_walk_covers_every_subpackage():
     assert {"bwamem_tpu_torch/parallel/mesh.py",
             "bwamem_tpu_torch/parallel/multihost.py",
             "bwamem_tpu_torch/ops/engine.py", "chip_smoke.py"} <= set(got)
+
+
+def test_the_walk_covers_the_commands_and_entry_points():
+    """The host commands' modules (core/fastmap.py, core/pemerge.py,
+    legacy/) and the entry points (graft_entry, bench, run_eval)."""
+    got = set(_sources())
+    assert {"bwamem_tpu_torch/core/fastmap.py",
+            "bwamem_tpu_torch/core/pemerge.py",
+            "bwamem_tpu_torch/graft_entry.py", "bwamem_tpu_torch/bench.py",
+            "bwamem_tpu_torch/run_eval.py"} <= got
+    assert {f"bwamem_tpu_torch/legacy/{m}.py" for m in (
+        "seqio", "bamlite", "aln", "aln_cli", "samse", "sampe",
+        "bwasw")} <= got
+
+
+@pytest.mark.parametrize("module,args", [
+    ("bwamem_tpu_torch.cli", ["fastmap", "genome.fa", "reads_se1.fq"]),
+    ("bwamem_tpu_torch.cli", ["samse", "genome.fa", "golden_se.sai",
+                              "reads_se.fq"]),
+    ("bwamem_tpu_torch.cli", ["pemerge", "reads_1.fq", "reads_2.fq"]),
+    ("bwamem_tpu_torch.cli", ["mem", "--engine", "host", "genome.fa",
+                              "reads_se1.fq"]),
+    ("bwamem_tpu_torch.graft_entry", ["--device", "cpu", "--shards", "2"]),
+], ids=["fastmap", "samse", "pemerge", "mem_host", "graft_entry"])
+def test_entry_point_loads_no_jax_module(data_dir, module, args):
+    """A command or entry point run as a program (each of its relative
+    imports resolved, the lazy ones too) with no JAX module in
+    sys.modules at exit."""
+    argv = [os.path.join(data_dir, a) if a.endswith((".fa", ".fq", ".sai"))
+            else a for a in args]
+    code = (
+        "import atexit, json, sys, runpy\n"
+        "def report():\n"
+        "    bad = sorted(m for m in sys.modules\n"
+        "                 if m.split('.')[0] in %r)\n"
+        "    sys.stderr.write('LOADED ' + json.dumps(bad) + '\\n')\n"
+        "atexit.register(report)\n"
+        "sys.argv = [%r] + %r\n"
+        "runpy.run_module(%r, run_name='__main__', alter_sys=True)\n"
+        % (FORBIDDEN, module, argv, module))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    loaded = [ln for ln in res.stderr.splitlines() if ln.startswith("LOADED ")]
+    assert loaded and json.loads(loaded[-1][len("LOADED "):]) == []
 
 
 def test_the_walk_sees_nested_imports():
