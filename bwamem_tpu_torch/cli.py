@@ -37,7 +37,9 @@ BWAMEM_TPU_CHUNK_BP sets the chunk size in bases, as in
                            share no table)
     --distributed C,N,I    process I of N, rendezvous at C (host:port):
                            --shard I/N by default, the engine on card
-                           I mod the cards there are (parallel/multihost.py)
+                           I mod the cards there are (parallel/multihost.py);
+                           with --mesh it is refused (every process's mesh
+                           would take the same first cards)
     --profile DIR          a torch.profiler trace of the run into DIR
 
 The port imports nothing of ``bwamem_tpu``: the host modules it needs
@@ -295,6 +297,11 @@ def main_mem(argv):
     if shard_tables and dist_spec is not None:
         sys.stderr.write("[E::main_mem] --shard-tables with --distributed "
                          "is not ported: the processes share no table\n")
+        return 1
+    if mesh_spec and dist_spec is not None:
+        sys.stderr.write("[E::main_mem] --mesh with --distributed is not "
+                         "ported: each process's mesh would take the same "
+                         "first cards\n")
         return 1
     opt.rescale_for_a()
     opt.mat = fill_scmat(opt.a, opt.b)

@@ -31,12 +31,18 @@ _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 
 
+def switched_off() -> bool:
+    """BWAMEM_TPU_NATIVE_FINALIZE=0, read at every call: the library is
+    neither built nor used, even once loaded."""
+    return os.environ.get("BWAMEM_TPU_NATIVE_FINALIZE", "1") == "0"
+
+
 def _load() -> Optional[ctypes.CDLL]:
     global _lib
+    if switched_off():
+        return None
     if _lib is not None:
         return _lib
-    if os.environ.get("BWAMEM_TPU_NATIVE_FINALIZE", "1") == "0":
-        return None
     with _lib_lock:
         if _lib is not None:
             return _lib

@@ -254,6 +254,47 @@ BM_HD void fm_occ_chunk(const FV& f, int64_t k, int ch, int c,
   *above += (c < 1 ? p1 : 0) + (c < 2 ? p2 : 0) + (c < 3 ? p3 : 0);
 }
 
+// What chunk ch of k's occ row adds to each of bwt_occ4's four counts,
+// into p[0..3] (occ.cu's occ4 groups): fm_occ_chunk's shares for every
+// base at once.  Kept apart from fm_occ_chunk, whose code the superstep
+// and the iterator step run: built on this one, they ran ~5% slower.
+template <class FV>
+BM_HD void fm_occ_chunk4(const FV& f, int64_t k, int ch, int64_t p[4]) {
+  p[0] = p[1] = p[2] = p[3] = 0;
+  if (k < 0) return;
+  const int64_t kk = k - (k >= f.primary ? 1 : 0);
+  const W4 v = fm_load4(fm_row(f, kk >> 7) + ch * 4);
+  if (ch < 2) {
+    const int64_t a = static_cast<int64_t>(v.w[1]) << 32 | v.w[0];
+    const int64_t b = static_cast<int64_t>(v.w[3]) << 32 | v.w[2];
+    p[0] = ch == 0 ? a : 0;
+    p[1] = ch == 0 ? b : 0;
+    p[2] = ch == 1 ? a : 0;
+    p[3] = ch == 1 ? b : 0;
+  } else {
+    const int off = static_cast<int>(kk & 127);
+    const int wi = off >> 4;
+    const int r = (~off) & 15;
+    int c1 = 0, c2 = 0, c3 = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = (ch - 2) * 4 + q;
+      const uint32_t m = j < wi ? 0xFFFFFFFFu
+                                : (j == wi ? ~((1u << (r * 2)) - 1u) : 0u);
+      const uint32_t w = v.w[q] & m;
+      const uint32_t hb = (w >> 1) & 0x55555555u;
+      const uint32_t lb = w & 0x55555555u;
+      c3 += bm_popc(hb & lb);
+      c2 += bm_popc(hb & ~lb);
+      c1 += bm_popc(lb & ~hb);
+    }
+    p[0] = (ch == 2 ? off + 1 : 0) - c1 - c2 - c3;
+    p[1] = c1;
+    p[2] = c2;
+    p[3] = c3;
+  }
+}
+
 // The bi-interval from bwt_occ4's counts at the two rows: tk_c = cnt(k)[c],
 // tl_c = cnt(l)[c] and above = the sum over d > c of cnt(l)[d] - cnt(k)[d].
 template <class FV>

@@ -351,9 +351,8 @@ def launch_cost(table: torch.Tensor, n: int, seed: int = 0) -> dict:
         return dt / LAUNCH_CALLS
 
     def checks():
-        occ._check_table(table)
-        _kernels.card_of(ids, "gather_rows")
-        if table.get_device() != idx:
+        occ._table_on_card(table)
+        if ids.get_device() != idx:
             raise ValueError("another card")
 
     raw = _kernels._raw_stream
@@ -361,9 +360,8 @@ def launch_cost(table: torch.Tensor, n: int, seed: int = 0) -> dict:
         "checks": checks,
         "device_guard": lambda: _kernels._current_card() == idx,
         "stream": lambda: raw(idx),
-        "convert": lambda: (_kernels.on_card(table, torch.int32, idx),
-                            _kernels.on_card(ids, torch.int64, idx)),
-        "empty": lambda: torch.empty((n, table.shape[1]), dtype=torch.int32,
+        "convert": lambda: ids.dtype is torch.int64 and ids.is_contiguous(),
+        "empty": lambda: torch.empty(n, table.shape[1], dtype=torch.int32,
                                      device=dev),
         "ctypes_call": lambda: entry(*args, raw(idx)),
         # the same call for no ids: ctypes and cudaGetLastError, no launch

@@ -54,6 +54,7 @@ _SIGNATURES = {
         "bm_sa_walk_host": [_VP, _I, _I64, _I64, _I64, _VP, _VP, _I64, _I,
                             _I64, _VP, _I, _I, _VP, _I, _VP]},
     "occ.cu": {
+        "bm_gather_rows_host": [_VP, _I64, _I, _VP, _I64, _I, _VP],
         "bm_occ4_host": [_VP, _I, _I64, _I64, _I64, _VP, _I64, _VP],
         "bm_part_of_host": [_I64, _I, _VP, _I64, _VP, _VP]},
     "global.cu": {
@@ -336,9 +337,26 @@ def sa_walk(dfm, keys, max_steps: int):
     return torch.from_numpy(vals), torch.from_numpy(over).bool()
 
 
+def gather_rows(table, ids, transpose: bool = False):
+    """bm_gather_rows's warps on the host; the arguments and outputs of
+    ops/occ.py gather_rows_cuda.  The host arrays are 16-byte aligned
+    where the card's allocations are (numpy's are), so the emulation
+    takes the vector warps where the card does."""
+    t = _np(table, np.int32)
+    k = _np(ids, np.int64).reshape(-1)
+    n, W = len(k), t.shape[1]
+    out = np.zeros((W, n) if transpose else (n, W), np.int32)
+    rc = _library("occ.cu").bm_gather_rows_host(
+        t.ctypes.data, t.shape[0], W, k.ctypes.data, n, int(transpose),
+        out.ctypes.data)
+    _check(rc, "gather_rows")
+    out = torch.from_numpy(out)
+    return out if transpose else out.reshape(*np.shape(ids), W)
+
+
 def occ4(blocks, primary: int, keys):
-    """bm_occ4's threads on the host; the arguments and outputs of
-    ops/occ.py occ4_cuda."""
+    """bm_occ4's groups of 4 lanes on the host; the arguments and outputs
+    of ops/occ.py occ4_cuda."""
     arrays, occ = _table_args(blocks, np.int32)
     k = _np(keys, np.int64)
     out = np.zeros((len(k), 4), np.int64)

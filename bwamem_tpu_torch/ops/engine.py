@@ -15,9 +15,23 @@ routes:
   tracing (the per-read extension, then the SE and PE finalize of
   core.pipeline) and chunks richer than 16 seeds per read.
 
-The host C++ library (native/) is required.  Each chunk takes the
-smallest length bucket that holds its longest read of at most
-BWAMEM_TPU_DEV_MAX_LEN (default 512) bp, as in the JAX engine
+The host C++ library (native/) carries the flat route: its chaining,
+extension packing and region building.  Without it
+(BWAMEM_TPU_NATIVE_FINALIZE=0), or with BWAMEM_TPU_NATIVE_REGIONS=0,
+the engine takes the JAX engine's Python route (engine.py:340-438):
+seeding through the superstep alone (ops/seeding.py superstep_streams),
+the SA walk as a launch of its own (seed_positions), chaining in Python
+(core/chain.py ChainTree), every seed's extension launched up front
+(_speculate_extensions, at most 16 seeds a read) into an ExtCache that
+answers the generators' extend_lr requests in drive_waves without a
+launch, and the regions from the generators (or from the native region
+builder over the cache, where the library is there and NATIVE_REGIONS
+is on).  BWAMEM_TPU_SPECULATE=0 drops the up-front extension on both
+routes: every chunk then takes the generators with live waves.  The
+two switches are read once, at import, as in the JAX engine.
+
+Each chunk takes the smallest length bucket that holds its longest read
+of at most BWAMEM_TPU_DEV_MAX_LEN (default 512) bp, as in the JAX engine
 (engine.py:156-211): seeding at L=128, 256 or 512, the flat route's
 extension at LQ=128 (target buckets BWAMEM_TPU_LT_BUCKETS, 160/320/544),
 LQ=256 (BWAMEM_TPU_LT_BUCKETS_LONG, 320/544/800) or LQ=512
@@ -55,12 +69,6 @@ engine.py:131-152) over a mesh of two or more shards, the occ table and
 the sampled SA are split by rows over the shards instead of replicated
 (parallel/mesh.py), and every kernel that reads them, the first
 device's iterator steps too, reads each part where it lies.
-
-The JAX engine's speculative extension cache (ExtCache,
-_speculate_extensions) is not ported: on the routes that reach
-drive_waves it is bypassed (traces) or over its budget (seed-rich
-chunks, the budget being 16 seeds per read), so it never answers a
-request there.
 """
 
 import os
@@ -79,6 +87,14 @@ from .fm import DeviceFmIndex
 from .ksw import cigars_from_tracebacks
 from .ksw_align import align2_wave
 from .seeding import BatchedSeeder
+
+# the native region builder and chainer (JAX engine.py:101-105); off,
+# the chunk chains in Python and its regions come from the generators
+NATIVE_REGIONS = os.environ.get("BWAMEM_TPU_NATIVE_REGIONS", "1") != "0"
+# every seed's extension launched up front (JAX engine.py:40-41); off,
+# every chunk takes the generators with live waves
+SPECULATE = os.environ.get("BWAMEM_TPU_SPECULATE", "1") != "0"
+SPECULATE_SEEDS_A_READ = 16   # past it a chunk is seed-rich
 
 
 def _default_min_wave() -> int:
@@ -121,11 +137,20 @@ def _chains_from_flat(flat, n_reads):
 
 
 class ChainBatch:
-    """chain_batch's result: `.flat` holds the chains of the whole chunk
-    as flat arrays (chain_off, seed_off, rbeg, qbeg, len)."""
+    """chain_batch's result on the native route: `.flat` holds the
+    chains of the whole chunk as flat arrays (chain_off, seed_off, rbeg,
+    qbeg, len)."""
 
     def __init__(self, flat):
         self.flat = flat
+
+
+class ExtCache(dict):
+    """Speculative extension results (JAX engine.py:64-69): keyed by
+    _lr_key for drive_waves, and `.outs`, the same results in the
+    flattened (read, chain, seed) order, for the native region
+    builder."""
+    outs = None
 
 
 def _require_native() -> None:
@@ -144,7 +169,10 @@ class TorchSeedingEngine:
     that pipeline calls on the JAX engine."""
 
     def __init__(self, fm_host, device, mesh=None, shard_tables=None):
-        _require_native()
+        # BWAMEM_TPU_NATIVE_FINALIZE=0 leaves the library out (the Python
+        # route); otherwise a library that does not build is an error
+        if not nfinalize.switched_off():
+            _require_native()
         env = os.environ.get
         self.fm_host = fm_host
         # lane-group widths of the launches (engine.py:24-46): extend2
@@ -213,7 +241,9 @@ class TorchSeedingEngine:
                     f"{n}; adjust BWAMEM_TPU_LANES/WAVE")
 
     def _native_ok(self) -> bool:
-        return True  # checked in __init__: the engine needs the library
+        """Whether the native library is loaded (JAX engine.py:802-809):
+        false under BWAMEM_TPU_NATIVE_FINALIZE=0."""
+        return nfinalize.available()
 
     def _timed(self, fn, *args, _tag="other", **kw):
         t0 = time.perf_counter()
@@ -259,15 +289,17 @@ class TorchSeedingEngine:
         return 512, self.lt_buckets_xl[-1], self.lt_buckets_xl
 
     def chain_batch(self, opt, reads, traces=None, trace_seeds=False):
-        """Device seeding + SA, native chaining, for a chunk; returns a
-        ChainBatch whose `.flat` covers every read in order.  The chunk
+        """Device seeding + SA, then chaining, for a chunk.  The chunk
         seeds in the smallest bucket that holds its longest read of at
         most dev_max_len bp; longer reads chain on the host oracle and
-        are spliced in.  With `traces` (one TraceLog per read) it returns
-        per-read Chain lists instead, and `trace_seeds` writes the -v 5
-        seed dump (bwamem.c:478-479): every seed of a read in array
-        order, the ones bridging the forward-reverse boundary included,
-        which the native chainer then drops (native/chain.cpp:78)."""
+        are spliced in.  With the native library and NATIVE_REGIONS it
+        chains natively and returns a ChainBatch whose `.flat` covers
+        every read in order, or with `traces` (one TraceLog per read)
+        per-read Chain lists; otherwise it returns per-read Chain lists
+        from _chains_python.  `trace_seeds` writes the -v 5 seed dump
+        (bwamem.c:478-479): every seed of a read in array order, the ones
+        bridging the forward-reverse boundary included, which the
+        chainers then drop (native/chain.cpp:78)."""
         from bwamem_tpu_torch.core.chain import mem_chain
         from bwamem_tpu_torch.core.pipeline import encode_read
         for r in reads:
@@ -282,6 +314,9 @@ class TorchSeedingEngine:
             self._count(f"chunks_L{seeder.L}")
         if host_idx:
             self._count("host_routed_reads", len(host_idx))
+        if not (NATIVE_REGIONS and self._native_ok()):
+            return self._chains_python(opt, reads, seeder, dev_idx,
+                                       host_idx, traces, trace_seeds)
         l_pac = self.fm_host.seq_len >> 1
         c_off = np.zeros(1, np.int64)
         sd_off = np.zeros(1, np.int64)
@@ -361,34 +396,87 @@ class TorchSeedingEngine:
         return ChainBatch((chain_off, sd_off_full, cat(rb_p, o_rb),
                            cat(qb_p, o_qb), cat(ln_p, o_ln)))
 
+    def _chains_python(self, opt, reads, seeder, dev_idx, host_idx, traces,
+                       trace_seeds):
+        """The Python chain route (JAX engine.py:340-377): the dev_idx
+        reads' interval streams (seeder.superstep_streams, or
+        interval_streams under BWAMEM_TPU_SUPERSTEP=0) and seeds
+        (seed_positions), each read's seeds inserted into a ChainTree in
+        stream order with _test_and_merge, the seeds that bridge the
+        forward-reverse boundary skipped; the host_idx reads through
+        mem_chain.  Returns per-read Chain lists."""
+        from bwamem_tpu_torch.core.chain import (Chain, ChainTree,
+                                                 _test_and_merge, mem_chain)
+        l_pac = self.fm_host.seq_len >> 1
+        chains: List[list] = [[] for _ in reads]
+        if dev_idx:
+            queries = [reads[i].seq_nt4 for i in dev_idx]
+            streams = (seeder.interval_streams(opt, queries, need_x1=False)
+                       if os.environ.get("BWAMEM_TPU_SUPERSTEP", "1") == "0"
+                       else seeder.superstep_streams(opt, queries))
+            seeds = seeder.seed_positions(self.fm_host, streams, opt)
+            for bi, i in enumerate(dev_idx):
+                tree = ChainTree()
+                for s in seeds[bi]:
+                    rbeg, qbeg, slen = s
+                    if trace_seeds and traces is not None:
+                        traces[i].append(
+                            "* Found SEED: length=%d,query_beg=%d,"
+                            "ref_beg=%d\n" % (slen, qbeg, rbeg))
+                    if rbeg < l_pac < rbeg + slen:
+                        continue
+                    low = tree.lower(rbeg) if len(tree) else None
+                    if low is None or not _test_and_merge(opt, l_pac, low,
+                                                          s):
+                        tree.insert(Chain(pos=rbeg, seeds=[s]))
+                chains[i] = tree.chains
+        for i in host_idx:
+            chains[i] = mem_chain(opt, self.fm_host, l_pac, reads[i].seq_nt4,
+                                  traces[i] if trace_seeds
+                                  and traces is not None else None)
+        return chains
+
     def align_batch(self, opt, fm, bns, pac, reads, traces=None,
                     trace_seeds=False, chains=None):
-        """Regions for a chunk: seeding and chaining (or the prefetched
-        result of prefetch_batch), then the flat route (the extension
-        kernel over every seed, native region building), or, with traces
-        or for a seed-rich chunk, the generators of align1_core_gen
-        through drive_waves (JAX engine.py:419-438)."""
+        """Regions for a chunk (JAX engine.py:379-438): seeding and
+        chaining (or the prefetched result of prefetch_batch), then on
+        the native route the flat extension (every seed through the
+        extension kernel, native region building).  Per-read Chain lists
+        take the generators of align1_core_gen through drive_waves,
+        after, where SPECULATE is on and there are no traces, every
+        seed's extension is launched up front into an ExtCache that
+        answers their extend_lr requests, or from which the native region
+        builder takes the regions where the library and NATIVE_REGIONS
+        allow.  A seed-rich chunk (past 16 seeds a read) and SPECULATE=0
+        take the generators with live waves."""
         from bwamem_tpu_torch.core.pipeline import align1_core_gen
         prefetched = isinstance(chains, tuple)
-        packed = None
+        cache = None
         if prefetched:                     # prefetch_batch output
-            chains, packed = chains
+            chains, cache = chains
         if chains is None:
             chains = self.chain_batch(opt, reads, traces=traces,
                                       trace_seeds=trace_seeds)
         if isinstance(chains, ChainBatch):
-            if not prefetched:
-                packed = self._pack_and_dispatch(opt, bns, pac, reads,
-                                                 chains.flat)
-            if packed is not None:
-                return self._collect_and_regions(opt, bns, pac, reads,
-                                                 chains.flat, *packed)
-            chains = _chains_from_flat(chains.flat, len(reads))
+            if SPECULATE:
+                packed = cache if prefetched else self._pack_and_dispatch(
+                    opt, bns, pac, reads, chains.flat)
+                if packed is not None:
+                    return self._collect_and_regions(opt, bns, pac, reads,
+                                                     chains.flat, *packed)
+            chains, cache = _chains_from_flat(chains.flat, len(reads)), None
+        elif not prefetched and SPECULATE and traces is None:
+            cache = self._speculate_extensions(opt, bns, pac, reads, chains)
+        if NATIVE_REGIONS and cache is not None and traces is None:
+            regs = nfinalize.regions_batch_native(opt, bns.l_pac, pac, reads,
+                                                  chains, cache.outs)
+            if regs is not None:
+                return regs
         gens = [align1_core_gen(
                     opt, fm, bns, pac, r, chains=chains[i],
                     trace=traces[i] if traces is not None else None)
                 for i, r in enumerate(reads)]
-        return self.drive_waves(opt, gens)
+        return self.drive_waves(opt, gens, cache=cache)
 
     def _pack_and_dispatch(self, opt, bns, pac, reads, flat):
         """Native pack of every seed's extension (oversize lanes served
@@ -403,7 +491,7 @@ class TorchSeedingEngine:
         the generator path, which extends only what the serial logic asks
         for (engine.py:449-451)."""
         n_seeds = len(flat[2])
-        if n_seeds > 16 * max(len(reads), 1):
+        if n_seeds > SPECULATE_SEEDS_A_READ * max(len(reads), 1):
             self._count("seed_rich_chunks")
             return None
         LQ, LT_max, lt_buckets = self._ext_shapes(reads)
@@ -515,13 +603,20 @@ class TorchSeedingEngine:
         return regs
 
     def prefetch_batch(self, opt, bns, pac, reads):
-        """The pipelined stage for chunk k+1: seeding, chaining and the
-        extension launches, so the device work of the next chunk
-        overlaps this chunk's host finalize.  align_batch unpacks the
-        result; for a seed-rich chunk it is (chains, None)."""
+        """The pipelined stage for chunk k+1: seeding, chaining and, where
+        SPECULATE is on, the extension launches (the flat route's packed
+        groups, or the Python route's ExtCache), so the device work of the
+        next chunk overlaps this chunk's host finalize.  Returns (chains,
+        packed or cache), None for a seed-rich chunk or SPECULATE=0;
+        align_batch unpacks it (JAX engine.py:623-642)."""
         chains = self.chain_batch(opt, reads)
-        return chains, self._pack_and_dispatch(opt, bns, pac, reads,
-                                               chains.flat)
+        if not SPECULATE:
+            return chains, None
+        if isinstance(chains, ChainBatch):
+            return chains, self._pack_and_dispatch(opt, bns, pac, reads,
+                                                   chains.flat)
+        return chains, self._speculate_extensions(opt, bns, pac, reads,
+                                                  chains)
 
     def warm_shapes(self, opt):
         """Build the kernels and run every fixed launch shape once on
@@ -558,20 +653,69 @@ class TorchSeedingEngine:
         for o in outs:
             o[0].cpu()
 
-    def drive_waves(self, opt, gens) -> List:
+    @staticmethod
+    def _lr_key(req):
+        """An extend_lr request's cache key (JAX engine.py:687-696): rs and
+        rrt follow from the index's pac, rmax0, s_rbeg and the lengths
+        (rmax1 only through len(rrt)), so the query bytes and the scalars
+        key it exactly."""
+        (_, qs, rs, qrt, rrt, sc_seed, s_qbeg, s_rbeg, rmax0,
+         l_query, s_len) = req
+        return (qs.tobytes(), qrt.tobytes(), len(rrt),
+                sc_seed, s_qbeg, s_rbeg, rmax0, l_query, s_len)
+
+    def _speculate_extensions(self, opt, bns, pac, reads, chains):
+        """Every seed's fused extension, launched as one set of waves
+        (_extend_lr_wave, JAX engine.py:698-728): a superset of what the
+        generators ask for.  Returns an ExtCache whose `.outs` holds the
+        results in the flattened (read, chain, seed) order, or None for a
+        seed-rich chunk (past 16 seeds a read, counted as
+        seed_rich_chunks), which then extends live."""
+        from bwamem_tpu_torch.core.region import (chain_rmax_rseq,
+                                                  seed_lr_request)
+        reqs = []
+        budget = SPECULATE_SEEDS_A_READ * max(len(reads), 1)
+        for i, r in enumerate(reads):
+            for c in chains[i]:
+                if c.n == 0:
+                    continue
+                rmax0, _, rseq = chain_rmax_rseq(
+                    opt, bns.l_pac, pac, r.seq_nt4, c)
+                for seed in c.seeds:
+                    reqs.append(seed_lr_request(
+                        opt, r.seq_nt4, rmax0, rseq, seed))
+            if len(reqs) > budget:
+                self._count("seed_rich_chunks")
+                return None
+        outs = self._extend_lr_wave(opt, reqs) if reqs else []
+        cache = ExtCache((self._lr_key(q), o) for q, o in zip(reqs, outs))
+        cache.outs = outs
+        return cache
+
+    def drive_waves(self, opt, gens, cache=None) -> List:
         """Advance every generator in lock-step (JAX engine.py:730-800):
         each round gathers the live requests and serves each type with
         batched launches; a round with fewer than MIN_WAVE requests goes
-        to the scalar oracle.  Returns each generator's return value."""
+        to the scalar oracle.  An extend_lr request that `cache` (an
+        ExtCache) holds is answered without a launch.  Returns each
+        generator's return value."""
         from bwamem_tpu_torch.core.swdrive import serve_host
         results: List = [None] * len(gens)
         live = {}
 
         def advance(i, out):
-            try:
-                live[i] = gens[i].send(out)
-            except StopIteration as e:
-                results[i] = e.value
+            while True:
+                try:
+                    req = gens[i].send(out)
+                except StopIteration as e:
+                    results[i] = e.value
+                    return
+                if cache is not None and req[0] == "extend_lr":
+                    out = cache.get(self._lr_key(req))
+                    if out is not None:
+                        continue
+                live[i] = req
+                return
 
         serve = {"extend2": self._extend_wave,
                  "extend_lr": self._extend_lr_wave,

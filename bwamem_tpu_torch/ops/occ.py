@@ -18,6 +18,8 @@ masked to 32 bits here, which gives the same values as the TPU's
 wrapping int32.
 """
 
+import weakref
+
 import torch
 
 from . import _kernels, fm
@@ -70,21 +72,44 @@ def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor,
     return rows.reshape(*ids.shape, table.shape[1])
 
 
+# id(table) -> (its card, its contiguous form): the checks made once per
+# table; the entry goes with the table (a weak reference's callback)
+_TABLES = {}
+
+
+def _table_on_card(table: torch.Tensor):
+    """(card, contiguous table) of a gather's table, checked at its first
+    call and kept while the table lives; a table is taken as it was
+    then."""
+    key = id(table)
+    got = _TABLES.get(key)
+    if got is not None and got[0]() is table:
+        return got[1]
+    _check_table(table)
+    idx = _kernels.card_of(table, "gather_rows")
+    info = (idx, table if table.is_contiguous() else table.contiguous())
+    _TABLES[key] = (weakref.ref(table, lambda _: _TABLES.pop(key, None)),
+                    info)
+    return info
+
+
 def gather_rows_cuda(table: torch.Tensor, ids: torch.Tensor,
                      transpose: bool = False) -> torch.Tensor:
-    """Launch bm_gather_rows (csrc/occ.cu) on CUDA ids."""
-    _check_table(table)
-    idx = _kernels.card_of(ids, "gather_rows")
-    if table.get_device() != idx:
+    """Launch bm_gather_rows (csrc/occ.cu) on CUDA ids.  The table's
+    checks are made once per table; contiguous int64 ids on its card go
+    to the kernel as they are."""
+    idx, table = _table_on_card(table)
+    if ids.get_device() != idx:
         raise ValueError(f"ids on {ids.device}, table on {table.device}")
     if transpose and ids.dim() != 1:
         raise ValueError("the transposed gather takes 1-D ids")
-    if not table.is_contiguous():
-        table = table.contiguous()
-    flat = _kernels.on_card(ids, torch.int64, idx)
+    flat = ids if ids.dtype is torch.int64 and ids.is_contiguous() \
+        else _kernels.on_card(ids, torch.int64, idx)
     n, W = flat.numel(), table.shape[1]
-    out = torch.empty((W, n) if transpose else (n, W), dtype=torch.int32,
-                      device=idx)
+    # sizes as arguments: a faster parse than a tuple
+    out = torch.empty(W, n, dtype=torch.int32, device=ids.device) \
+        if transpose else torch.empty(n, W, dtype=torch.int32,
+                                      device=ids.device)
     if n:
         _kernels.GATHER.launch(idx, table.data_ptr(), table.shape[0], W,
                                flat.data_ptr(), n, int(transpose),

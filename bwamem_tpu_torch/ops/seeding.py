@@ -2,11 +2,15 @@
 chunk's reads, as flat arrays for the native chainer.
 
 Port of bwamem_tpu/ops/seeding.py (BatchedSeeder.interval_arrays :418,
-interval_streams :191 with _SliceRun :809, seeds_from_arrays :620,
-_resolve_keys_device :729).  A seeder serves one length bucket, L=128,
-256 or 512: reads up to L bp, in fixed-width lane groups.  By default
-each group is one fused superstep + SA-walk dispatch
-(ops.smem.smem_superstep_sa) and one fetch.  With
+interval_streams :191 with _SliceRun :809, seed_positions :370,
+seeds_from_arrays :620, _resolve_keys_device :729).  A seeder serves one
+length bucket, L=128, 256 or 512: reads up to L bp, in fixed-width lane
+groups.  By default each group is one fused superstep + SA-walk dispatch
+(ops.smem.smem_superstep_sa) and one fetch.  The unfused route
+(BWAMEM_TPU_GCAP_PER_LANE=0 or BWAMEM_TPU_FUSE_SA=0, and the list form
+superstep_streams that the engine's Python chain route seeds from) is one
+superstep launch a group, its per-lane streams fetched whole, and the
+SA walk as launches of their own afterwards.  With
 ``BWAMEM_TPU_SUPERSTEP=0`` the iterator runs round by round instead,
 one ops.smem.smem_iter_step launch and fetch per round, the ordered
 merge and the bookkeeping between rounds on the host, and every seed's
@@ -104,10 +108,10 @@ class BatchedSeeder:
         self.out_cap = out_cap if L <= 256 else max(out_cap, 64)
         self.gcap_per = gcap_per if L <= 256 else 2 * gcap_per
         self.key_cap = int(env("BWAMEM_TPU_KEY_CAP", str(8 * self.lanes)))
-        if self.gcap_per <= 0:
-            raise ValueError("BWAMEM_TPU_GCAP_PER_LANE must be positive: "
-                             "the fused seeding dispatch needs the "
-                             "compact wire")
+        # the fused launch needs the compact wire (JAX seeding.py:47-51,
+        # :432-433): GCAP_PER_LANE=0 or FUSE_SA=0 take the unfused route
+        self.fuse = (env("BWAMEM_TPU_FUSE_SA", "1") != "0"
+                     and self.gcap_per > 0)
         self._sa_prefetch = None
 
     def _fetch(self, tensors, tag: str):
@@ -170,6 +174,19 @@ class BatchedSeeder:
         qpk = qpad[:, 0::2] | (qpad[:, 1::2] << np.int8(4))
         return qpk, qlen, slens, active
 
+    def superstep_streams(self, opt, queries: Sequence[np.ndarray]
+                          ) -> List[List[Intv]]:
+        """Per read, the concatenated interval lists (x0, x1, s,
+        qb<<32|qe) of every iterator call, in call order (the stream
+        mem_chain consumes), from one superstep launch per lane group
+        (_unfused_arrays; JAX seeding.py _streams_superstep :232); x1 is
+        0, the superstep does not keep it."""
+        x0, sz, qb, qe, read_off = self._unfused_arrays(opt, queries)
+        items = list(zip(x0.tolist(), [0] * len(x0), sz.tolist(),
+                         ((qb << 32) | qe).tolist()))
+        off = read_off.tolist()
+        return [items[off[i]:off[i + 1]] for i in range(len(queries))]
+
     def interval_streams(self, opt, queries: Sequence[np.ndarray],
                          need_x1: bool = True) -> List[List[Intv]]:
         """The round route (BWAMEM_TPU_SUPERSTEP=0, JAX seeding.py:191-230
@@ -199,13 +216,80 @@ class BatchedSeeder:
             out.extend(st.out)
         return out
 
+    def _splice_oracle(self, opt, grp, n_l, over_l, cols):
+        """Splice the host oracle's streams into the overflow lanes of a
+        fetched group, in place of their empty device segments.  cols are
+        the group's flat (x0, s, qb, qe) int64 arrays in lane order, n_l
+        the lanes' counts (0 for the over_l lanes); returns the new cols,
+        the counts and each interval's device mark (False: spliced)."""
+        start_width = 2 if (opt.flag & MEM_F_NO_EXACT) else 1
+        sl_init = int(opt.min_seed_len * opt.split_factor + .499)
+        dev_mark = np.ones(len(cols[0]), bool)
+        if not over_l.any():
+            return cols, n_l, dev_mark
+        cut = np.cumsum(n_l)[:-1]
+        parts = [np.split(a, cut) for a in (*cols, dev_mark)]
+        self.timer._count("ovf_smem_lanes", int(over_l.sum()))
+        for i in np.nonzero(over_l)[0]:
+            lst: List[Intv] = []
+            self._oracle_finish(opt, grp[i], 0, start_width,
+                                min(sl_init, len(grp[i])), opt.split_width,
+                                lst)
+            for part, vals in zip(parts, (
+                    [p[0] for p in lst], [p[2] for p in lst],
+                    [p[3] >> 32 for p in lst],
+                    [p[3] & 0xFFFFFFFF for p in lst])):
+                part[i] = np.asarray(vals, np.int64)
+            parts[4][i] = np.zeros(len(lst), bool)
+            n_l[i] = len(lst)
+        joined = [np.concatenate(p) for p in parts]
+        return joined[:4], n_l, joined[4]
+
+    def _unfused_arrays(self, opt, queries: Sequence[np.ndarray]):
+        """The unfused route (JAX seeding.py:489-495, :523-537): one
+        superstep launch per lane group, its per-lane streams of OUT_CAP
+        slots fetched whole and flattened on the host, lane by lane.
+        Returns (x0, size, qb, qe) int64 arrays and read_off."""
+        start_width = 2 if (opt.flag & MEM_F_NO_EXACT) else 1
+        B = self.lanes
+        pend = []
+        for lo in range(0, len(queries), B):
+            grp = queries[lo:lo + B]
+            qpk, qlen, slens, active = self._lane_group(opt, grp)
+            pend.append((grp, self.kernels.superstep_unfused(
+                qpk, qlen, np.full(B, start_width, np.int64), active, slens,
+                np.full(B, opt.split_width, np.int32), L=self.L, M=self.M,
+                OUT_CAP=self.out_cap)))
+        cols_all, cnts = [], []
+        for grp, res in pend:
+            o0, os_, oqb, oqe, n_out, over = self._fetch(res, "smem")
+            ng = len(grp)
+            over_l = over[:ng].astype(bool)
+            n_l = np.where(over_l, 0, n_out[:ng]).astype(np.int64)
+            mask = np.arange(o0.shape[1])[None, :] < n_l[:, None]
+            cols = [a[:ng][mask].astype(np.int64)
+                    for a in (o0, os_, oqb, oqe)]
+            cols, n_l, _ = self._splice_oracle(opt, grp, n_l, over_l, cols)
+            cols_all.append(cols)
+            cnts.append(n_l)
+        x0, sz, qb, qe = (np.concatenate([c[k] for c in cols_all])
+                          if cols_all else np.zeros(0, np.int64)
+                          for k in range(4))
+        read_off = np.zeros(len(queries) + 1, dtype=np.int64)
+        if cnts:
+            np.cumsum(np.concatenate(cnts), out=read_off[1:])
+        return x0, sz, qb, qe, read_off
+
     def interval_arrays(self, opt, queries: Sequence[np.ndarray]):
         """Per-interval (x0, size, qb, qe) int64 arrays + read_off, in
         the exact per-read stream order of the host iterator.  On the
-        superstep route the SA values of the device-covered intervals
-        are kept for seeds_from_arrays; the round route
-        (BWAMEM_TPU_SUPERSTEP=0) flattens interval_streams and leaves
-        every key to the SA-walk kernel."""
+        fused route (the superstep, the compaction, the key expansion and
+        the SA walk in one call a lane group) the SA values of the
+        device-covered intervals are kept for seeds_from_arrays.  The
+        unfused route (BWAMEM_TPU_GCAP_PER_LANE=0 or BWAMEM_TPU_FUSE_SA=0,
+        _unfused_arrays) and the round route (BWAMEM_TPU_SUPERSTEP=0,
+        which flattens interval_streams) leave every key to the SA-walk
+        kernel."""
         if os.environ.get("BWAMEM_TPU_SUPERSTEP", "1") == "0":
             self._sa_prefetch = None
             streams = self.interval_streams(opt, queries, need_x1=False)
@@ -217,8 +301,10 @@ class BatchedSeeder:
             sz = np.asarray([p[2] for p in flat], np.int64)
             info = np.asarray([p[3] for p in flat], np.int64)
             return x0, sz, info >> 32, info & 0xFFFFFFFF, read_off
+        if not self.fuse:
+            self._sa_prefetch = None
+            return self._unfused_arrays(opt, queries)
         start_width = 2 if (opt.flag & MEM_F_NO_EXACT) else 1
-        sl_init = int(opt.min_seed_len * opt.split_factor + .499)
         B = self.lanes
         gcap = self.gcap_per * B
         n = self.kernels.n
@@ -257,28 +343,8 @@ class BatchedSeeder:
                 nk = int(g_nk)
                 sa_vals.append(g_vals[:nk])
                 sa_over.append(g_over[:nk].astype(bool))
-            dev_mark = np.ones(len(gx), bool)
-            if over_l.any():
-                # splice host-oracle streams into the overflow rows
-                cut = np.cumsum(n_l)[:-1]
-                px, ps, pqb, pqe, pdm = (np.split(a, cut) for a in
-                                         (gx, gs, gqb, gqe, dev_mark))
-                self.timer._count("ovf_smem_lanes", int(over_l.sum()))
-                for i in np.nonzero(over_l)[0]:
-                    lst: List[Intv] = []
-                    self._oracle_finish(opt, grp[i], 0, start_width,
-                                        min(sl_init, len(grp[i])),
-                                        opt.split_width, lst)
-                    px[i] = np.asarray([p[0] for p in lst], np.int64)
-                    ps[i] = np.asarray([p[2] for p in lst], np.int64)
-                    pqb[i] = np.asarray([p[3] >> 32 for p in lst],
-                                        np.int64)
-                    pqe[i] = np.asarray([p[3] & 0xFFFFFFFF for p in lst],
-                                        np.int64)
-                    pdm[i] = np.zeros(len(lst), bool)
-                    n_l[i] = len(lst)
-                gx, gs, gqb, gqe, dev_mark = (
-                    np.concatenate(a) for a in (px, ps, pqb, pqe, pdm))
+            (gx, gs, gqb, gqe), n_l, dev_mark = self._splice_oracle(
+                opt, grp, n_l, over_l, [gx, gs, gqb, gqe])
             xs.append(gx)
             szs.append(gs)
             qbs.append(gqb)
@@ -369,6 +435,39 @@ class BatchedSeeder:
         qbeg = np.repeat(qbk, szk).astype(np.int32)
         slen_a = np.repeat(slk, szk).astype(np.int32)
         return read_ids, vals, qbeg, slen_a
+
+    def seed_positions(self, fm_host, intervals_per_read, opt
+                       ) -> List[List[Tuple[int, int, int]]]:
+        """Per read, the (rbeg, qbeg, len) seeds of its interval stream
+        after the min_seed_len and max_occ filters, in (interval,
+        occurrence) order (JAX seeding.py:370-416,
+        software/bwamem.c:407-420); every occurrence's SA value from the
+        SA-walk launches of _resolve_keys_device, walks past the step cap
+        on the host."""
+        keys: List[int] = []
+        layout = []   # (read, qb, len, occurrences, first key)
+        for i, intervals in enumerate(intervals_per_read):
+            for p in intervals:
+                slen = (p[3] & 0xFFFFFFFF) - (p[3] >> 32)
+                if slen < opt.min_seed_len or p[2] > opt.max_occ:
+                    continue
+                layout.append((i, p[3] >> 32, slen, p[2], len(keys)))
+                keys.extend(range(p[0], p[0] + p[2]))
+        out: List[List[Tuple[int, int, int]]] = [
+            [] for _ in intervals_per_read]
+        if not keys:
+            return out
+        karr = np.asarray(keys, dtype=np.int64)
+        vals, over = self._resolve_keys_device(karr)
+        n_ovf = int(np.count_nonzero(over))
+        if n_ovf:
+            self.timer._count("ovf_sa_keys", n_ovf)
+        for idx in np.nonzero(over)[0]:   # walks past the step cap
+            vals[idx] = fm_host.sa_lookup(int(karr[idx]))
+        vals_l = vals.tolist()
+        for i, qb, slen, n_occ, off in layout:
+            out[i].extend((v, qb, slen) for v in vals_l[off:off + n_occ])
+        return out
 
     def _resolve_keys_device(self, keys: np.ndarray):
         """SA values of arbitrary keys through SA_SLICE-padded walks on

@@ -9,7 +9,8 @@ shards then share it, as the JAX tests' shards share one CPU through 8
 virtual devices.
 
 ``ShardedKernels`` holds the index on each distinct device and is
-the engine's one way to its seeding, SA-walk and SW kernels: over a
+the engine's one way to its seeding (fused, or the superstep alone on the
+unfused route), SA-walk and SW kernels: over a
 mesh, or over the engine's one device.  Each call splits the lane axis
 into one contiguous block per shard, moves each block from the host
 straight to its shard's device, and calls the single-device wrapper
@@ -56,7 +57,7 @@ from ..ops import _kernels
 from ..ops.fm import DeviceFmIndex, sa_lookup
 from ..ops.ksw import (ksw_extend2_batched, ksw_extend_lr_batched,
                        ksw_global2_batched)
-from ..ops.smem import smem_iter_step, smem_superstep_sa
+from ..ops.smem import smem_iter_step, smem_superstep_sa, superstep
 
 READS_AXIS = "reads"
 MAX_ISIZE = 65536   # insert sizes past this are clamped into the tail
@@ -233,6 +234,17 @@ class ShardedKernels:
              min_seed_len, max_occ), _SUPERSTEP_LANES, index=True, L=L,
             M=M, OUT_CAP=OUT_CAP, GCAP=GCAP, KEY_CAP=KEY_CAP,
             SA_STEPS=SA_STEPS)
+
+    def superstep_unfused(self, q_pk, qlen, min_intv, active, split_len,
+                          split_width, *, L: int, M: int, OUT_CAP: int):
+        """ops.smem.superstep (the superstep alone, per-lane streams of
+        OUT_CAP slots, no compact wire) over the mesh; Lanes outputs (o0,
+        os, oqb, oqe, n_out, over), the unfused route's (JAX
+        parallel/mesh.py superstep with GCAP=0)."""
+        return _lanes_of(self._run(
+            superstep, (q_pk, qlen, min_intv, active, split_len,
+                        split_width), _SUPERSTEP_LANES, index=True, L=L,
+            M=M, OUT_CAP=OUT_CAP))
 
     def smem1(self, q_pk, qlen, x, min_intv, active, split_len, split_width,
               *, L: int, M: int, M_OUT: int):

@@ -48,11 +48,11 @@ Phases, each printing one line with its own numbers and seconds:
    per call (host_ms); the SA walk's also its
    chain floor (the longest walk among the launch's live keys, in steps,
    times one dependent occ-row step of the chain kernel on the same
-   table); and gather_rows at 16,384 ids of the index's occ table
-   against index_select, its library call, by CUDA events and device
-   time, with microbench.launch_cost's step-by-step host cost of the
-   call.  Split tables (`mem --shard-tables`): the superstep and the
-   iterator step at L=128, the SA walk and occ4 (262,144 keys, the part
+   table); and gather_rows at 16,384 and 262,144 ids of the index's occ
+   table against index_select, its library call, by CUDA events and
+   device time, with microbench.launch_cost's step-by-step host cost of
+   the call at 16,384.  Split tables (`mem --shard-tables`): the
+   superstep and the iterator step at L=128, the SA walk and occ4 (262,144 keys, the part
    boundaries among them) over the index cut into 2 and 4 parts on this
    card, held against their plain versions over the same parts and
    against the whole-table kernel, tolerance zero, each timed right
@@ -82,7 +82,19 @@ Phases, each printing one line with its own numbers and seconds:
    2,000 reads and 1,000 pairs of a 16 Mbp repeat genome
    (tools/make_gbp_fasta.py --repeats, ~45% repeat bases; cut from a
    human-scale genome for the time limit), byte-identical to
-   ``--engine host``.
+   ``--engine host``.  The routes their switches select, each counted on
+   its own (the engine's NATIVE_REGIONS and SPECULATE module constants
+   set with their variables): BWAMEM_TPU_NATIVE_FINALIZE=0 (no native
+   library: the Python chain route, the speculative extension cache,
+   the generators' regions, the Python finalize) on the SE, SE -a -M and
+   PE goldens and the -v 4 SE trace, then on the first 10,000 SE reads
+   and 2,000 pairs of the 4.64 Mbp set, timed, equal to the default
+   route on the same files (the SE cut also to phase 4's SAM of those
+   reads); BWAMEM_TPU_NATIVE_REGIONS=0, BWAMEM_TPU_SPECULATE=0,
+   BWAMEM_TPU_GCAP_PER_LANE=0 and BWAMEM_TPU_FUSE_SA=0 (the unfused
+   seeding route: the superstep alone, the SA walk a launch of its own)
+   on the SE golden, and GCAP_PER_LANE=0 on the 100k SE set, timed, equal
+   to phase 4's SAM.
 
 5. ``python -m bwamem_tpu_torch.microbench all`` in this process, with
    the genome's occ table: the gather variants and occ4 at 2 x LANES
@@ -147,8 +159,9 @@ Launch counts are zeroed just before each path and read just after: the
 default flat route (goldens, real size, long reads: superstep, SA walk
 and extend_lr launched, at L=256, L=512, LQ=256 and LQ=512 too), the
 SUPERSTEP=0 route (smem1_step, SA walk, extend_lr), the ONCHIP_EXT=1
-route (superstep, SA walk, build_rows, extend_lr) and the generator wave
-path (extend2, global2, align2), the microbench sweep (gather_rows,
+route (superstep, SA walk, build_rows, extend_lr), each switch's route
+(superstep, SA walk, extend_lr) and the generator wave path (extend2,
+global2, align2), the microbench sweep (gather_rows,
 occ4, row_chain, affine_loop), the reads mesh of phase 6 (superstep,
 SA walk, extend_lr, extend2, global2) and the split tables of phase 7
 (the same and smem1_step).  The last three lines are nvidia-smi's
@@ -327,6 +340,7 @@ def walk_steps(d, keys, max_steps):
 CHAIN_LANES, CHAIN_STEPS = 8192, 256   # the chain sweep's dep, K = 1
 # the time keys of a record that --kernels prints
 TIME_KEYS = ("ms", "profiler_ms", "device_ms", "host_ms", "library_ms",
+             "rounds_ms",
              "chain_floor", "launch_cost", "bound_ms")
 
 
@@ -346,37 +360,50 @@ def chain_ns_per_step(d):
 
 
 GATHER_IDS = 2 * 8192   # the seeding's rows a step (2 x LANES)
+GATHER_IDS_BIG = 2 * 8192 * 16   # and of a step's M = 16 intervals
+GATHER_ROUNDS = 5       # alternating rounds of gather_rows and index_select
 
 
 def check_gather_launch(label, d, rec):
-    """gather_rows at GATHER_IDS rows of the index's occ table against
-    index_select (its library call) by CUDA events, beside both device
-    times, held against the plain version; and microbench.launch_cost's
-    step-by-step host cost of the call."""
+    """gather_rows at GATHER_IDS and GATHER_IDS_BIG rows of the index's
+    occ table against index_select (its library call) by CUDA events,
+    beside both device times, held against the plain version; and, at
+    GATHER_IDS, microbench.launch_cost's step-by-step host cost of the
+    call."""
     import torch
     from bwamem_tpu_torch import microbench
     from bwamem_tpu_torch.ops import occ as toc
     g = torch.Generator(device=d.device)
     g.manual_seed(5)
-    ids = torch.randint(0, d.n_blocks, (GATHER_IDS,), generator=g,
-                        device=d.device, dtype=torch.int64)
-    args = (d.blocks, ids, False)
-    k_ms, ko = cuda_ms(lambda: toc.gather_rows_cuda(*args), 100)
-    p_ms, po = cuda_ms(lambda: toc.gather_rows_plain(*args), 1, False)
-    lib_ms, lo = cuda_ms(lambda: torch.index_select(d.blocks, 0, ids), 100)
-    err = max(max_err([(ko, po)]), max_err([(ko, lo)]))
-    if err:
-        raise RuntimeError(f"{label}: gather_rows differs ({err})")
-    r = dict(index=label, bucket=f"ids{GATHER_IDS}", ms=k_ms,
-             plain_ms=p_ms, max_abs_err=err, library_ms=lib_ms,
-             library_profiler_ms=profiler_ms(
-                 lambda: torch.index_select(d.blocks, 0, ids), None),
-             **device_time(lambda: toc.gather_rows_cuda(*args),
-                           "gather_rows_kernel", k_ms),
-             **bound(nbytes((ids, ko)) + OCC_ROW_BYTES * int(
-                 torch.unique(ids).numel()), 0))
-    r["launch_cost"] = microbench.launch_cost(d.blocks, GATHER_IDS)
-    rec["gather_rows"].append(r)
+    for n in (GATHER_IDS, GATHER_IDS_BIG):
+        ids = torch.randint(0, d.n_blocks, (n,), generator=g,
+                            device=d.device, dtype=torch.int64)
+        args = (d.blocks, ids, False)
+        # host-bound calls: the two alternate over GATHER_ROUNDS rounds of
+        # 100 calls, so a slower spell of the host falls on both; medians
+        rounds = [(cuda_ms(lambda: toc.gather_rows_cuda(*args), 100),
+                   cuda_ms(lambda: torch.index_select(d.blocks, 0, ids),
+                           100)) for _ in range(GATHER_ROUNDS)]
+        (k_ms, ko), (lib_ms, lo) = (
+            sorted((r[j] for r in rounds), key=lambda t: t[0])[
+                GATHER_ROUNDS // 2]
+            for j in (0, 1))
+        p_ms, po = cuda_ms(lambda: toc.gather_rows_plain(*args), 1, False)
+        err = max(max_err([(ko, po)]), max_err([(ko, lo)]))
+        if err:
+            raise RuntimeError(f"{label}: gather_rows differs ({err})")
+        r = dict(index=label, bucket=f"ids{n}", ms=k_ms,
+                 plain_ms=p_ms, max_abs_err=err, library_ms=lib_ms,
+                 rounds_ms=[[a[0], b[0]] for a, b in rounds],
+                 library_profiler_ms=profiler_ms(
+                     lambda: torch.index_select(d.blocks, 0, ids), None),
+                 **device_time(lambda: toc.gather_rows_cuda(*args),
+                               "gather_", k_ms),
+                 **bound(nbytes((ids, ko)) + OCC_ROW_BYTES * int(
+                     torch.unique(ids).numel()), 0))
+        if n == GATHER_IDS:
+            r["launch_cost"] = microbench.launch_cost(d.blocks, n)
+        rec["gather_rows"].append(r)
 
 
 def scratch_bytes(fn):
@@ -1397,6 +1424,24 @@ def main(argv):
             [k for k in kernels if k in (_kernels.SMEM1, _kernels.BUILD)],
             (), f"the {route} route"))
 
+    # 3-4 on the routes their switches select, each counted on its own:
+    # the no-native route (phase 3's goldens and trace, phase 4's cut),
+    # the Python chain route with the library there, no speculation, and
+    # the unfused seeding route (phase 4's 100k SE set)
+    for route, env, names in SWITCH_ROUTES:
+        kernels = [getattr(_kernels, n) for n in names]
+        _kernels.reset_counts()
+        switch_goldens(route, env)
+        if not quick and route == "no_native":
+            no_native_real_size(defaults)
+        if not quick and route == "gcap0":
+            with switched(env):
+                route_real_size(route, env, defaults, ("se",))
+        counts = read_counts(kernels, f"the {route} route")
+        say(f"launches_{route}", launches=counts)
+        launches.update({k: v for k, v in counts.items()
+                         if k not in launches})
+
     # 3-4 on the generator wave path, counted the same way
     _kernels.reset_counts()
     t0 = time.perf_counter()
@@ -1468,13 +1513,15 @@ def kernels_line(rec, launches, buckets):
             extra = {key: main[key] for key in (
                 "longest_walk", "chain_ns_per_step", "chain_floor_ms")}
         if k is _kernels.GATHER:
-            g = [r for r in rec[k.name]
-                 if r.get("bucket") == f"ids{GATHER_IDS}"][-1]
-            extra = {f"ids{GATHER_IDS}": {
+            extra = {f"ids{n}": {
                 key: g.get(key) for key in ("index", "ms", "profiler_ms",
                                             "device_ms", "host_ms",
                                             "library_ms",
-                                            "library_profiler_ms")}}
+                                            "library_profiler_ms",
+                                            "bound_ms", "rounds_ms")}
+                for n in (GATHER_IDS, GATHER_IDS_BIG)
+                for g in [[r for r in rec[k.name]
+                           if r.get("bucket") == f"ids{n}"][-1]]}
         kernels.append(dict(
             name=k.name, route="cuda", source=k.source,
             replaces=k.replaces, launches=launches[k.name],
@@ -1673,10 +1720,10 @@ def route_goldens(route, env):
         stats=stats, seconds=time.perf_counter() - t0)
 
 
-def route_real_size(route, env, defaults):
-    """The 100k SE 101 bp run and the 2x150 bp run through a route,
-    timed, each byte-identical to the default route's SAM."""
-    for tag in ("se", "pe150"):
+def route_real_size(route, env, defaults, tags=("se", "pe150")):
+    """The 100k SE 101 bp run and the 2x150 bp run (or `tags`) through a
+    route, timed, each byte-identical to the default route's SAM."""
+    for tag in tags:
         args, want, n_reads = defaults[tag]
         path = os.path.join(BIG, f"{route}_{tag}.sam")
         err, dt = run_mem(args, path, env)
@@ -1685,7 +1732,108 @@ def route_real_size(route, env, defaults):
                                f"default route ({path} vs {want})")
         say(f"{route}_{tag}", reads=n_reads, seconds=dt,
             reads_per_s=n_reads / dt, identical_to_default=True,
-            stats=device_stats(err))
+            default_reads_per_s=REAL_RPS.get(tag), stats=device_stats(err))
+
+
+# the routes their switches select (the engine's module constants,
+# read at import, are set with their variables): the Python route
+# without the native library, the same with the library there, no
+# speculation, and the unfused seeding route; what each must launch
+SWITCH_ROUTES = (
+    ("no_native", {"BWAMEM_TPU_NATIVE_FINALIZE": "0"}, ("SMEM", "SA",
+                                                        "EXTEND")),
+    ("native_regions0", {"BWAMEM_TPU_NATIVE_REGIONS": "0"},
+     ("SMEM", "SA", "EXTEND")),
+    ("speculate0", {"BWAMEM_TPU_SPECULATE": "0"}, ("SMEM", "SA", "EXTEND")),
+    ("gcap0", {"BWAMEM_TPU_GCAP_PER_LANE": "0"}, ("SMEM", "SA", "EXTEND")),
+    ("fuse_sa0", {"BWAMEM_TPU_FUSE_SA": "0"}, ("SMEM", "SA", "EXTEND")))
+N_NONATIVE_SE, N_NONATIVE_PE = 10000, 2000   # the no-native route's cut
+
+
+@contextlib.contextmanager
+def switched(env):
+    """The engine's module constants that env's switches set (where the
+    package has them: a parent tree may not)."""
+    from bwamem_tpu_torch.ops import engine
+    saved = {}
+    try:
+        for key, val in env.items():
+            name = key[len("BWAMEM_TPU_"):]
+            if hasattr(engine, name) and name in ("NATIVE_REGIONS",
+                                                  "SPECULATE"):
+                saved[name] = getattr(engine, name)
+                setattr(engine, name, val != "0")
+        yield
+    finally:
+        for name, val in saved.items():
+            setattr(engine, name, val)
+
+
+def switch_goldens(route, env):
+    """The goldens through a switch's route: the SE, SE -a -M and PE
+    goldens and the -v 4 SE trace without the native library, the SE
+    golden through the others."""
+    t0 = time.perf_counter()
+    out = os.path.join(HERE, ".smoke_data")
+    runs = [g for g in GOLDENS if route == "no_native" or g[0] == "se"]
+    if route == "no_native":
+        runs.append(("se_v4", ["-v", "4", os.path.join(DATA, "genome.fa"),
+                               os.path.join(DATA, "reads_se.fq")],
+                     "golden_se_v4.txt"))
+    stats = {}
+    with switched(env):
+        for tag, args, golden in runs:
+            err = check_golden(args, os.path.join(
+                out, f"smoke_{route}_{tag}.out"), golden, env)
+            stats[tag] = device_stats(err)
+    say(f"goldens_{route}", identical=[g for _, _, g in runs], stats=stats,
+        seconds=time.perf_counter() - t0)
+
+
+def first_records(path, n_reads):
+    """The SAM records of a file's first n_reads reads."""
+    out, names = [], set()
+    for ln in records(path):
+        if not ln:
+            continue
+        name = ln.split("\t", 1)[0]
+        if name not in names:
+            if len(names) == n_reads:
+                break
+            names.add(name)
+        out.append(ln)
+    return out
+
+
+def no_native_real_size(defaults):
+    """The no-native route on a cut of the 4.64 Mbp set (the first
+    N_NONATIVE_SE SE reads and N_NONATIVE_PE pairs), timed beside the
+    default route on the same files: equal SAM, and on the SE cut equal
+    to phase 4's 100k SE SAM's records of those reads."""
+    env = dict(SWITCH_ROUTES[0][1])
+    for tag, files, n in (("se", ["reads_se.fq"], N_NONATIVE_SE),
+                          ("pe", ["reads_1.fq", "reads_2.fq"],
+                           N_NONATIVE_PE)):
+        cut = [head_fastq(os.path.join(BIG, f), os.path.join(
+            BIG, f"cut_{n}_{f}"), n) for f in files]
+        args = [os.path.join(BIG, "genome.fa")] + cut
+        want = os.path.join(BIG, f"cut_default_{tag}.sam")
+        _, dt_default = run_mem(args, want)
+        path = os.path.join(BIG, f"no_native_{tag}.sam")
+        with switched(env):
+            err, dt = run_mem(args, path, env)
+        if sam_body(path) != sam_body(want):
+            raise RuntimeError(f"no_native {tag}: output differs from the "
+                               f"default route ({path} vs {want})")
+        if tag == "se" and first_records(path, n) != first_records(
+                defaults["se"][1], n):
+            raise RuntimeError("no_native se: output differs from phase "
+                               "4's SAM of those reads")
+        n_reads = n * len(files)
+        say(f"no_native_{tag}", reads=n_reads, seconds=dt,
+            reads_per_s=n_reads / dt, default_seconds=dt_default,
+            default_reads_per_s=n_reads / dt_default,
+            identical_to_default=True, stats=device_stats(err))
 
 
 def records(path):

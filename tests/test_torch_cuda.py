@@ -571,6 +571,98 @@ def test_occ4_kernel_matches_plain(dfm):
     assert not occ4_cuda(dfm.blocks, dfm.primary_int, past).any()
 
 
+@pytest.mark.parametrize("n", [3001, 70001])
+@pytest.mark.parametrize("W,transpose", [(4, False), (16, False),
+                                         (128, False), (5, False),
+                                         (16, True), (128, True), (5, True)])
+def test_gather_rows_warps_match_plain_and_emulation(cuda, W, transpose, n):
+    """The warp gather (csrc/occ.cu): a group of W/4 lanes a row at W = 4,
+    16 and 128 (one row a group, and four where the launch fills the
+    card: 70,001 ids), the word warps at W = 5, the transposed tile; ids
+    outside the table give zero rows.  Equal to the plain version and to
+    the host emulation (bm_gather_rows_host), launched without a sync."""
+    from bwamem_tpu_torch.ops import _kernels, emulate
+    from bwamem_tpu_torch.ops.occ import gather_rows_cuda, gather_rows_plain
+    table = _table(cuda, 4096, W, W + n)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n)
+    ids = torch.randint(-3, 4099, (n,), generator=g, device=cuda)
+    n0 = _kernels.GATHER.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = gather_rows_cuda(table, ids, transpose)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert _kernels.GATHER.launches == n0 + 1
+    assert torch.equal(got, gather_rows_plain(table, ids, transpose))
+    assert torch.equal(got.cpu(),
+                       emulate.gather_rows(table.cpu(), ids.cpu(), transpose))
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_occ4_groups_match_plain_and_emulation(engine, parts):
+    """occ4 by groups of 4 lanes over the whole table and split in 2 and
+    4 parts on card 0: k = -1, 0, primary and its neighbours, both ends
+    of every block, the last key, a key past the table (zeros) and
+    random keys, against the plain version and bm_occ4_host."""
+    from bwamem_tpu_torch.ops import emulate, fm as tfm
+    from bwamem_tpu_torch.ops.fm import DeviceFmIndex
+    from bwamem_tpu_torch.ops.occ import occ4_cuda
+    eng, _ = engine
+    d = eng.dfm
+    t = d if parts == 1 else DeviceFmIndex.from_host(eng.fm_host).split(
+        [torch.device("cuda", 0)] * parts)
+    n, p = d.seq_len_int, d.primary_int
+    edge = [b * 128 + o for b in range(d.n_blocks) for o in (0, 127)]
+    keys = torch.tensor([-1, 0, p - 1, p, p + 1, n - 1, n] + edge,
+                        device=eng.device)
+    keys = keys[keys <= n]
+    rng = np.random.default_rng(parts)
+    keys = torch.cat([keys, torch.from_numpy(
+        rng.integers(0, n + 1, 30000)).to(eng.device)])
+    got = occ4_cuda(t.blocks, t.primary_int, keys)
+    assert torch.equal(got, tfm.occ4(d.blocks, p, keys))
+    assert torch.equal(got.cpu(), emulate.occ4(t.blocks, p, keys.cpu()))
+    past = torch.tensor([128 * d.n_blocks + 1, 1 << 40], device=eng.device)
+    assert not occ4_cuda(t.blocks, p, past).any()
+
+
+@pytest.mark.parametrize("switch", ["BWAMEM_TPU_NATIVE_FINALIZE=0",
+                                    "BWAMEM_TPU_NATIVE_REGIONS=0",
+                                    "BWAMEM_TPU_SPECULATE=0",
+                                    "BWAMEM_TPU_GCAP_PER_LANE=0",
+                                    "BWAMEM_TPU_FUSE_SA=0"])
+@pytest.mark.parametrize("flags,reads,golden", [
+    ([], ["reads_se.fq"], "golden_se.sam"),
+    ([], ["reads_1.fq", "reads_2.fq"], "golden_pe.sam"),
+    (["-v", "4"], ["reads_se.fq"], "golden_se_v4.txt"),
+], ids=["se", "pe", "se_v4"])
+def test_mem_cuda_switches_match_golden(cuda, data_dir, monkeypatch, switch,
+                                        flags, reads, golden, capsys):
+    """The no-native route (the library left out), the Python chain and
+    region route, no speculation, and the unfused seeding route on the
+    card: the goldens, the superstep and the SA walk launched."""
+    from bwamem_tpu_torch import cli
+    from bwamem_tpu_torch.ops import _kernels, engine as eng_mod
+    key, val = switch.split("=")
+    monkeypatch.setenv(key, val)
+    for name in ("NATIVE_REGIONS", "SPECULATE"):
+        if key == "BWAMEM_TPU_" + name:
+            monkeypatch.setattr(eng_mod, name, False)
+    _kernels.reset_counts()
+    assert cli.main_mem(["--device", "cuda"] + flags + [
+        os.path.join(data_dir, "genome.fa")]
+        + [os.path.join(data_dir, r) for r in reads]) == 0
+    out = [ln for ln in capsys.readouterr().out.split("\n")
+           if not ln.startswith("@PG")]
+    with open(os.path.join(data_dir, golden)) as f:
+        want = [ln for ln in f.read().split("\n") if not ln.startswith("@PG")]
+    assert out == want
+    assert _kernels.SMEM.launches > 0 and _kernels.SA.launches > 0
+
+
 @pytest.mark.parametrize("W", [16, 128])
 @pytest.mark.parametrize("K", [1, 2, 4, 8])
 @pytest.mark.parametrize("mode", ["dep", "nodep", "null", "full", "xpose",

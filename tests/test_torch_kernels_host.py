@@ -1,10 +1,12 @@
 """The kernels written against a team of lanes, their own algorithms on the
 CPU: csrc/extend.cu (one warp per seed), csrc/smem.cu (a group of threads
-per read), csrc/global.cu and csrc/align.cu (one warp per alignment) built
-by g++ with each group's lanes as arrays (bwamem_tpu_torch/ops/emulate.py)
+per read), csrc/global.cu and csrc/align.cu (one warp per alignment),
+csrc/occ.cu (the row gather's warps, occ4's groups of 4 lanes) built by
+g++ with each group's lanes as arrays (bwamem_tpu_torch/ops/emulate.py)
 and held against the plain PyTorch versions (ops/ksw.py extend_lr_plain,
 extend2_plain, global_plain; ops/smem.py superstep_plain,
-smem_iter_step_plain; ops/ksw_align.py align_plain) on the bundled
+smem_iter_step_plain; ops/ksw_align.py align_plain; ops/occ.py
+gather_rows_plain; ops/fm.py occ4) on the bundled
 genome's seeds and reads and on lanes at the edges: one-sided seeds, qlen
 1 and LQ, tlen 0 and LT, z-drop 0, h0 0, bands of 1 and above the clamp,
 degenerate bands, u8 saturation, all-N reads, buffer and stream
@@ -598,3 +600,52 @@ def test_align2_host(bundled, data_dir, kind, size):
     if kind == "endsc_first_row":
         last = got[5].numpy()
         assert (last[lanes[3] > 0] == got[1].numpy()[lanes[3] > 0]).all()
+
+
+# ---- the occ-row gather and occ4 (csrc/occ.cu) ----
+
+@pytest.mark.parametrize("n", [1, 77, 3001, 70001])
+@pytest.mark.parametrize("W,transpose", [(4, False), (16, False),
+                                         (128, False), (5, False),
+                                         (16, True), (128, True), (5, True)])
+def test_gather_rows_host(W, transpose, n):
+    """bm_gather_rows's warps: a group of W/4 lanes a row at W = 4, 16
+    and 128 (one row a group; four where the launch fills the card, at
+    70,001 ids), the word warps at W = 5, the transposed tile at the
+    widths that fill it and not; ids outside the table give zero
+    rows."""
+    from bwamem_tpu_torch.ops.occ import gather_rows_plain
+    g = torch.Generator().manual_seed(W * 7 + n)
+    table = torch.randint(-(1 << 31), 1 << 31, (4096, W), dtype=torch.int32,
+                          generator=g)
+    ids = torch.randint(-3, 4099, (n,), generator=g)
+    assert torch.equal(emulate.gather_rows(table, ids, transpose),
+                       gather_rows_plain(table, ids, transpose))
+
+
+def test_gather_rows_host_nd_ids():
+    from bwamem_tpu_torch.ops.occ import gather_rows_plain
+    table = torch.arange(64 * 16, dtype=torch.int32).view(64, 16)
+    ids = torch.tensor([[3, -1, 63], [64, 0, 2]])
+    assert torch.equal(emulate.gather_rows(table, ids),
+                       gather_rows_plain(table, ids))
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_occ4_host_groups(bundled, parts):
+    """bm_occ4's groups of 4 lanes (the 16-byte chunk loads and the
+    reduce-scatter) against ops/fm.py occ4: k = -1, 0, primary and its
+    neighbours, both ends of every block (k % 128 in {0, 127}), the last
+    key, a key past the table (zeros), over the whole table and split in
+    2 and 4 parts."""
+    from bwamem_tpu_torch.ops import fm as tfm
+    _, _, d = bundled
+    t = d if parts == 1 else d.split([torch.device("cpu")] * parts)
+    n, p = d.seq_len_int, d.primary_int
+    keys = [-1, 0, p - 1, p, p + 1, n - 1, n] + [
+        b * 128 + o for b in range(d.n_blocks) for o in (0, 127)]
+    k = torch.tensor([x for x in keys if x <= n])
+    got = emulate.occ4(t.blocks, p, k)
+    assert torch.equal(got, tfm.occ4(d.blocks, p, k))
+    past = torch.tensor([128 * d.n_blocks + 1, 1 << 40])
+    assert not emulate.occ4(t.blocks, p, past).any()
