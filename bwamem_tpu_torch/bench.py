@@ -67,6 +67,17 @@ def shuffled_chunks(reads, rep: int, n_chunks: int, pe: bool, seed,
     return out
 
 
+def timed(stages: dict, name: str, fn):
+    """fn, adding its seconds to stages[name] at every call."""
+    def wrap(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+    return wrap
+
+
 def rounded(stats: dict) -> dict:
     return {k: round(v, 3) if isinstance(v, float) else v
             for k, v in stats.items()}
@@ -135,16 +146,10 @@ def main(argv=None) -> int:
 
         stages = {}
         if env("BWAMEM_TPU_BENCH_STAGES"):
-            def timed(name, fn):
-                def wrap(*a, **kw):
-                    t = time.perf_counter()
-                    out = fn(*a, **kw)
-                    stages[name] = stages.get(name, 0.0) \
-                        + time.perf_counter() - t
-                    return out
-                return wrap
-            engine.chain_batch = timed("seed+sa", engine.chain_batch)
-            engine.drive_waves = timed("sw_waves", engine.drive_waves)
+            engine.chain_batch = timed(stages, "seed+sa",
+                                       engine.chain_batch)
+            engine.drive_waves = timed(stages, "sw_waves",
+                                       engine.drive_waves)
             engine.kernel_time = 0.0
             engine.n_dispatches = 0
             engine.kernel_time_by_tag = {}

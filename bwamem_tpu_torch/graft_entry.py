@@ -54,7 +54,7 @@ def _tiny_problem(n_reads: int, L: int, device: str = "cpu"):
     fwd = rng.integers(0, 4, 512).astype(np.uint8)
     doubled = np.concatenate([fwd, 3 - fwd[::-1]])  # fwd + revcomp
     fm = FmIndex.build(doubled)
-    dfm = DeviceFmIndex.from_host(fm).replica(device)
+    dfm = DeviceFmIndex.from_host(fm, device)
     q = np.full((n_reads, L), 4, dtype=np.int8)
     for i in range(n_reads):
         off = int(rng.integers(0, 512 - L))

@@ -273,13 +273,12 @@ class FmIndex:
                 return False
             intv = int(head[1])
             n8 = (self.seq_len + intv) // intv
-            vals = np.fromfile(f, dtype="<u8", count=n8 - 1)
-            if len(vals) != n8 - 1:
+            sa8 = np.empty(n8, dtype=np.int64)
+            sa8[0] = -1
+            if not _read_into(f, sa8[1:]):
                 return False
             self.sa8_intv = intv
-            self.sa8 = np.empty(n8, dtype=np.int64)
-            self.sa8[0] = -1
-            self.sa8[1:] = vals.astype(np.int64)
+            self.sa8 = sa8
         return True
 
     def dump_sa(self, path: str) -> None:
@@ -309,8 +308,27 @@ class FmIndex:
                 n_sa = (fm.seq_len + fm.sa_intv) // fm.sa_intv
                 fm.sa = np.empty(n_sa, dtype=np.int64)
                 fm.sa[0] = -1
-                fm.sa[1:] = np.fromfile(f, dtype="<u8", count=n_sa - 1).astype(np.int64)
+                if not _read_into(f, fm.sa[1:]):
+                    raise ValueError(f"{sa_path}: fewer than {n_sa - 1} "
+                                     f"SA values")
         return fm
+
+
+def _read_into(f, dst: np.ndarray) -> bool:
+    """Fill the int64 array dst with the file's next little-endian 64-bit
+    values, read in place (the values are below 2^63, so the <u8 words
+    are their int64 bits): no temporary of dst's size, which at Gbp scale
+    is gigabytes.  False where the file ends first."""
+    view = memoryview(dst).cast("B")
+    got = 0
+    while got < len(view):
+        n = f.readinto(view[got:])
+        if not n:
+            return False
+        got += n
+    if dst.dtype.byteorder == ">":
+        dst.byteswap(inplace=True)
+    return True
 
 
 def _occ_aux64(y: int, c: int) -> int:

@@ -195,9 +195,13 @@ class TorchSeedingEngine:
         self.shard_tables = bool(shard_tables) and mesh is not None \
             and len(mesh) > 1
         self.device = torch.device(device)
+        # the tables made on the engine's device and filled from the host
+        # index (no whole host copy); split ones are cut from the CPU
         self.kernels = ShardedKernels(
             (self.device,) if mesh is None else mesh,
-            DeviceFmIndex.from_host(fm_host), self.shard_tables)
+            DeviceFmIndex.from_host(
+                fm_host, "cpu" if self.shard_tables else self.device),
+            self.shard_tables)
         self.dfm = self.kernels.index_on(self.device)
         self.seeder = BatchedSeeder(self.dfm, fm_host, self, self.kernels)
         # per-chunk length buckets: the L=256 and L=512 seeders are

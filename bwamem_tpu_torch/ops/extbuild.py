@@ -66,14 +66,13 @@ def build_rows_plain(reads_q, pac, l_pac: int, rid, qb0, slen, rb0,
     lq = query(col(qb0) - 1 - jq, qb0)
     rq = query(col(qe0) + jq, lquery - qe0)
 
-    pac = pac.to(i64)
     rev = col(rmax0 >= l_pac)
     jt = torch.arange(LT, device=dev).unsqueeze(0)
 
     def target(pos, n):
         f = torch.where(rev, 2 * l_pac - 1 - pos, pos)
         f = f.clamp(0, 4 * len(pac) - 1)
-        b = (pac[f >> 2] >> ((~f & 3) << 1)) & 3
+        b = (pac[f >> 2].to(i64) >> ((~f & 3) << 1)) & 3
         b = torch.where(rev, 3 - b, b)
         return torch.where(jt < col(n), b, four)
     zero = torch.zeros_like(qb0)

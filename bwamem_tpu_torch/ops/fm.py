@@ -40,21 +40,49 @@ from . import _kernels
 WORDS_PER_BLOCK = 16
 _M55 = 0x55555555
 _M32 = 0xFFFFFFFF
-_SA8_MAX_BYTES = 2048 << 20   # the JAX package's BWAMEM_TPU_SA8_MAX_MB
+UPLOAD_ROWS = 1 << 22   # rows a slice of a table's upload (256 MiB of occ)
+SA8_MAX_BYTES = 2048 << 20   # the JAX package's BWAMEM_TPU_SA8_MAX_MB
 
 
-def _uniform_blocks(bwt: np.ndarray, seq_len: int) -> np.ndarray:
-    """Repack the compact interleaved uint32 array into (n_blocks, 16)
-    (the final block may carry fewer than 8 words on disk)."""
-    n_blocks = (seq_len + 127) >> 7
+def coordinate_dtype(seq_len: int) -> torch.dtype:
+    """The coordinate dtype of an index of seq_len doubled bases: int32
+    while seq_len + 2 < 2^31 (the interval arithmetic forms seq_len + 1
+    style values), else int64; BWAMEM_TPU_FORCE_I64 takes int64 at any
+    size (the wide path on a small genome)."""
+    if seq_len + 2 >= 1 << 31 or os.environ.get("BWAMEM_TPU_FORCE_I64"):
+        return torch.int64
+    return torch.int32
+
+
+def dense_sa_fits(nbytes: int) -> bool:
+    """Whether a .sa8 sample of nbytes (as loaded, int64) serves the SA
+    walk: up to SA8_MAX_BYTES; past it the sparse .sa (interval 32)
+    does."""
+    return nbytes <= SA8_MAX_BYTES
+
+
+def upload(dst: torch.Tensor, src: np.ndarray) -> None:
+    """dst[:len(src)] = src (converted to dst's dtype), UPLOAD_ROWS rows
+    at a time: a slice's conversion or staging is the only temporary,
+    never a whole host copy of the table."""
+    for lo in range(0, len(src), UPLOAD_ROWS):
+        part = src[lo:lo + UPLOAD_ROWS]
+        dst[lo:lo + len(part)].copy_(torch.from_numpy(part))
+
+
+def upload_blocks(dst: torch.Tensor, bwt: np.ndarray, seq_len: int) -> None:
+    """The compact interleaved uint32 array into dst, the (n_blocks, 16)
+    int32 occ table: the full blocks straight from a view of bwt, the
+    final one (it may carry fewer than 8 words on disk) zero-padded."""
     n_plain_words = (seq_len + 15) >> 4
-    out = np.zeros((n_blocks, WORDS_PER_BLOCK), dtype=np.uint32)
     full = n_plain_words >> 3
-    out[:full] = bwt[:full * 16].reshape(-1, 16)
-    if full < n_blocks:
+    words = np.asarray(bwt).view(np.int32)
+    upload(dst, words[:full * 16].reshape(-1, WORDS_PER_BLOCK))
+    if full < dst.shape[0]:
         rem = n_plain_words - full * 8
-        out[full, :8 + rem] = bwt[full * 16:full * 16 + 8 + rem]
-    return out
+        last = np.zeros(WORDS_PER_BLOCK, np.int32)
+        last[:8 + rem] = words[full * 16:full * 16 + 8 + rem]
+        dst[full].copy_(torch.from_numpy(last))
 
 
 MAX_PARTS = 8   # csrc/fm.cuh kMaxParts: one part per card of a node
@@ -165,19 +193,24 @@ class DeviceFmIndex(nn.Module):
 
     def __init__(self, blocks, L2, primary, seq_len, sa, sa_intv: int):
         super().__init__()
-        L2 = torch.from_numpy(np.array(L2))
-        self.register_buffer("blocks", torch.from_numpy(
-            np.array(blocks, dtype=np.uint32).view(np.int32)))
+        # tensors are taken as they are, arrays copied (occ words as
+        # int32 bit patterns)
+        if not isinstance(blocks, torch.Tensor):
+            blocks = torch.from_numpy(
+                np.array(blocks, dtype=np.uint32).view(np.int32))
+        L2, sa = (t if isinstance(t, torch.Tensor)
+                  else torch.from_numpy(np.array(t)) for t in (L2, sa))
+        self.register_buffer("blocks", blocks)
         self.register_buffer("L2", L2)
-        self.register_buffer("primary", torch.tensor(int(primary),
-                                                     dtype=L2.dtype))
-        self.register_buffer("seq_len", torch.tensor(int(seq_len),
-                                                     dtype=L2.dtype))
-        self.register_buffer("sa", torch.from_numpy(np.array(sa)))
+        self.register_buffer("primary", torch.tensor(
+            int(primary), dtype=L2.dtype, device=L2.device))
+        self.register_buffer("seq_len", torch.tensor(
+            int(seq_len), dtype=L2.dtype, device=L2.device))
+        self.register_buffer("sa", sa)
         self.sa_intv = int(sa_intv)
         self.primary_int = int(primary)
         self.seq_len_int = int(seq_len)
-        self.L2_host = L2.numpy().astype(np.int64)
+        self.L2_host = L2.cpu().numpy().astype(np.int64)
         self.L2_host_ptr = self.L2_host.ctypes.data   # a kernel argument
 
     @property
@@ -216,22 +249,29 @@ class DeviceFmIndex(nn.Module):
                             devices[0])
 
     @classmethod
-    def from_host(cls, fm) -> "DeviceFmIndex":
+    def from_host(cls, fm, device="cpu") -> "DeviceFmIndex":
         """Tables of a host FmIndex (bwamem_tpu.index.fmindex.FmIndex),
-        on the CPU; move them with ``.to(device)``."""
-        blocks = _uniform_blocks(fm.bwt, int(fm.seq_len))
-        # +2 margin: interval arithmetic forms seq_len+1 style values
-        cdt = np.int32 if int(fm.seq_len) + 2 < (1 << 31) else np.int64
-        if os.environ.get("BWAMEM_TPU_FORCE_I64"):  # test the wide path
-            cdt = np.int64
+        made on device and filled slice by slice from the host index's
+        own arrays (upload): the host holds no copy of a table beside
+        them for a card, the tensor itself on the CPU."""
+        device = torch.device(device)
+        seq_len = int(fm.seq_len)
+        cdt = coordinate_dtype(seq_len)
         # denser sample when the index ships the .sa8 sidecar: identical
         # values, ~4x fewer psi-walk steps; past the size cap the sparse
         # .sa wins
         sa8 = getattr(fm, "sa8", None)
-        if sa8 is not None and sa8.nbytes > _SA8_MAX_BYTES:
+        if sa8 is not None and not dense_sa_fits(sa8.nbytes):
             sa8 = None
-        sa = (sa8 if sa8 is not None else fm.sa).astype(cdt)
-        return cls(blocks, fm.L2.astype(cdt), fm.primary, fm.seq_len, sa,
+        sa_host = sa8 if sa8 is not None else fm.sa
+        blocks = torch.empty(((seq_len + 127) >> 7, WORDS_PER_BLOCK),
+                             dtype=torch.int32, device=device)
+        upload_blocks(blocks, fm.bwt, seq_len)
+        sa = torch.empty(len(sa_host), dtype=cdt, device=device)
+        upload(sa, np.asarray(sa_host))
+        L2 = torch.tensor(np.asarray(fm.L2, np.int64), dtype=cdt,
+                          device=device)
+        return cls(blocks, L2, fm.primary, seq_len, sa,
                    fm.sa8_intv if sa8 is not None else fm.sa_intv)
 
     @classmethod

@@ -74,6 +74,21 @@ def _merge(matches: List[Intv], sub: List[Intv], max_len: int,
     return merged
 
 
+def interval_buffer(seq_len: int) -> int:
+    """The SMEM iterator's interval buffer M for an index of seq_len
+    doubled bases, where BWAMEM_TPU_SMEM_M does not set it.  A forward
+    extension pushes about log4(seq_len) + 1 intervals before its size
+    reaches one, and a lane whose buffer overflows redoes its read on the
+    host oracle.  On the H100, 16 entries: no overflow at 4.64 Mbp;
+    0.05% of 101 bp reads over at 64 Mbp, 0.85% at 128 Mbp, 2.55% at
+    256 Mbp (half the reads/s of 32 entries) and 46% at 1.1 Gbp.  32
+    entries cost the superstep ~1.3x (1.30 against 0.98 ms at 64 Mbp),
+    yet were ahead end to end in every SE and PE bench at 64 and 128
+    Mbp.  So the switch sits between 4.64 and 64 Mbp, where log4 puts
+    the overflow's onset: 32 from 2^26 doubled bases (33.5 Mbp)."""
+    return 16 if seq_len < 1 << 26 else 32
+
+
 class BatchedSeeder:
     """Per-read interval streams and seeds, computed by the device
     kernels in lane groups, for reads of up to L (128, 256 or 512) bp."""
@@ -94,7 +109,8 @@ class BatchedSeeder:
         self.timer = timer          # the engine: _timed / _count
         self.lanes = int(env("BWAMEM_TPU_LANES", "512"))
         self.sa_slice = int(env("BWAMEM_TPU_SA_SLICE", "16384"))
-        self.M = int(env("BWAMEM_TPU_SMEM_M", "16"))
+        self.M = int(env("BWAMEM_TPU_SMEM_M", "0")) \
+            or interval_buffer(dfm.seq_len_int)
         # the round route's fetch width: steps with more SMEMs than
         # M_OUT redo on the host oracle
         self.m_out = min(int(env("BWAMEM_TPU_SMEM_MOUT", "12")), self.M)

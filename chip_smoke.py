@@ -10,6 +10,9 @@
     python3 chip_smoke.py --real N [--root DIR]    # phase 1 and phase
                                     # 4's timed 100k SE and 20k PE runs,
                                     # N times (an A/B of the main path)
+    python3 chip_smoke.py --human MBP [--repeats] [--bench-chunks K]
+                                    # phases 1 and 9 on a genome of MBP
+                                    # Mbp (~45% repeats), a K-chunk bench
 
 Phases, each printing one line with its own numbers and seconds:
 
@@ -155,6 +158,23 @@ Phases, each printing one line with its own numbers and seconds:
    ``--quick`` keeps the bundled-genome steps, ``mem --engine host`` and
    the dry run.
 
+9. human scale: ``python -m bwamem_tpu_torch.run3g`` on a 128 Mbp
+   genome (tools/make_gbp_fasta.py, the port's ``cli index``, 2,000 SE
+   reads and 1,000 pairs from tools/sample_reads.py; the index build's
+   seconds printed): the host references first, all at once
+   (``bwamem_tpu.cli mem --engine host`` and ``run3g host``), then
+   ``run3g cuda`` in this process on the SE reads and the pairs, each
+   counted on its own, its records byte-identical to both, then a
+   2-chunk bench; again with BWAMEM_TPU_FORCE_I64=1 (the int64 path over
+   tables past the L2); the SE run once more in its own process with its
+   bench traced by torch.profiler (``run3g --profile``: the card's busy
+   share); then the superstep, the SA walk and extend_lr against their
+   plain versions at full width on this index (tolerance zero), on
+   32,768 distinct SE reads of their own, each beside its phase 2 record
+   at 4.64 Mbp.  The line has each run's load and engine-up seconds,
+   cdt, sa_intv, table bytes, host-route counters, bench stages and busy
+   share, and the phase's seconds.
+
 Launch counts are zeroed just before each path and read just after: the
 default flat route (goldens, real size, long reads: superstep, SA walk
 and extend_lr launched, at L=256, L=512, LQ=256 and LQ=512 too), the
@@ -164,7 +184,8 @@ route (superstep, SA walk, build_rows, extend_lr), each switch's route
 global2, align2), the microbench sweep (gather_rows,
 occ4, row_chain, affine_loop), the reads mesh of phase 6 (superstep,
 SA walk, extend_lr, extend2, global2) and the split tables of phase 7
-(the same and smem1_step).  The last three lines are nvidia-smi's
+(the same and smem1_step) and each run3g run of phase 9 (superstep, SA
+walk, extend_lr).  The last three lines are nvidia-smi's
 name and power limit, the kernels' JSON record (launches, times, bounds,
 per-bucket launches and times) and the result JSON; any failure exits
 non-zero without them.
@@ -218,11 +239,11 @@ def say(phase, **kv):
     print(json.dumps(dict(phase=phase, **kv)), flush=True)
 
 
-def run_mem(args, out_path, env=None):
-    """`mem` in this process through the port's CLI: stdout to out_path,
-    stderr captured.  Returns (stderr text, seconds)."""
-    from bwamem_tpu_torch import cli
-    old_env = {k: os.environ.get(k) for k in (env or {})}
+def run_entry(main, argv, out_path, env=None):
+    """An entry point's main(argv) in this process: stdout to out_path,
+    stderr captured, env set over os.environ for the call and os.environ
+    as it was afterwards.  Returns (return code, stderr text, seconds)."""
+    saved = dict(os.environ)
     os.environ.update(env or {})
     err = io.StringIO()
     so, se = sys.stdout, sys.stderr
@@ -230,18 +251,23 @@ def run_mem(args, out_path, env=None):
     try:
         with open(out_path, "w") as f:
             sys.stdout, sys.stderr = f, err
-            rc = cli.main_mem(["--device", DEVICE] + args)
+            rc = main(argv)
     finally:
         sys.stdout, sys.stderr = so, se
-        for k, v in old_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    dt = time.perf_counter() - t0
+        os.environ.clear()
+        os.environ.update(saved)
+    return rc, err.getvalue(), time.perf_counter() - t0
+
+
+def run_mem(args, out_path, env=None):
+    """`mem` in this process through the port's CLI: stdout to out_path,
+    stderr captured.  Returns (stderr text, seconds)."""
+    from bwamem_tpu_torch import cli
+    rc, err, dt = run_entry(cli.main_mem, ["--device", DEVICE] + args,
+                            out_path, env)
     if rc != 0:
-        raise RuntimeError(f"mem {args} exited {rc}:\n{err.getvalue()}")
-    return err.getvalue(), dt
+        raise RuntimeError(f"mem {args} exited {rc}:\n{err}")
+    return err, dt
 
 
 def sam_body(path):
@@ -608,8 +634,9 @@ def read_fastq_seqs(path, n):
     return seqs
 
 
-def check_kernels(label, idx_prefix, fq, rec):
-    """Phase 2 on one index: each kernel against its plain version."""
+def check_kernels(label, idx_prefix, fq, rec, main_only=False):
+    """Phase 2 on one index: each kernel against its plain version
+    (main_only: the superstep, the SA walk and extend_lr, phase 9's)."""
     import numpy as np
     import torch
     from bwamem_tpu_torch.config import MemOptions, fill_scmat
@@ -630,6 +657,7 @@ def check_kernels(label, idx_prefix, fq, rec):
 
     # SMEM superstep: B reads (the file's reads, repeated to fill)
     seqs = read_fastq_seqs(fq, B)
+    distinct = len(seqs)
     seqs = [seqs[i % len(seqs)] for i in range(B)]
     q = np.full((B, L), 4, np.int8)
     qlen = np.zeros(B, np.int32)
@@ -649,7 +677,7 @@ def check_kernels(label, idx_prefix, fq, rec):
         raise RuntimeError(f"{label}: superstep differs ({err})")
     rec["smem_superstep"].append(dict(
         index=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err, lanes=B,
-        over=int(po[5].sum()), bucket="L128",
+        distinct_reads=distinct, over=int(po[5].sum()), bucket="L128",
         **device_time(lambda: tsm.superstep_cuda(*args), "superstep_kernel",
                       k_ms),
         **fm_bound(d, tsm.superstep_plain, args, ko)))
@@ -685,9 +713,11 @@ def check_kernels(label, idx_prefix, fq, rec):
         index=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
         keys=len(keys), live_keys=nk, longest_walk=longest,
         chain_ns_per_step=ns, chain_floor_ms=longest * ns / 1e6,
+        sa_intv=d.sa_intv, sa_bytes=d.sa.nbytes,
         **device_time(lambda: tfm.sa_walk_cuda(d, keys, sdr.sa_max_steps),
                       "sa_walk_kernel", k_ms), **fb))
-    check_gather_launch(label, d, rec)
+    if not main_only:
+        check_gather_launch(label, d, rec)
 
     # extension: one WAVE_EXT group of this genome's seeds, size-sorted
     reads = []
@@ -717,15 +747,17 @@ def check_kernels(label, idx_prefix, fq, rec):
         **device_time(lambda: tks.extend_lr_cuda(*ext_args),
                       "extend_lr_kernel", k_ms),
         **ext_bound(pk, grp, ext_args, ke, opt, LQ, LT)))
-    check_sw_kernels(label, eng, bns, opt, reads, cb.flat, pk, rec)
-    check_long_kernels(label, eng, bns, opt, (q, qlen), reads, cb.flat, pk,
-                       rec)
-    if SPLIT:
-        check_split_kernels(label, fm_host, args, keys, n_keys, eng,
-                            (q, qlen), rec)
+    if not main_only:
+        check_sw_kernels(label, eng, bns, opt, reads, cb.flat, pk, rec)
+        check_long_kernels(label, eng, bns, opt, (q, qlen), reads, cb.flat,
+                           pk, rec)
+        if SPLIT:
+            check_split_kernels(label, fm_host, args, keys, n_keys, eng,
+                                (q, qlen), rec)
     del eng
     torch.cuda.empty_cache()
     say("kernels", index=label, blocks=int(d.n_blocks),
+        cdt=str(d.cdt).replace("torch.", ""),
         seconds=time.perf_counter() - t0,
         results={k: [r for r in v if r["index"] == label]
                  for k, v in rec.items()})
@@ -1299,6 +1331,10 @@ def main(argv):
     real_runs = int(argv[argv.index("--real") + 1]) if "--real" in argv \
         else 0
     root = argv[argv.index("--root") + 1] if "--root" in argv else HERE
+    human = float(argv[argv.index("--human") + 1]) if "--human" in argv \
+        else 0
+    human_chunks = int(argv[argv.index("--bench-chunks") + 1]) \
+        if "--bench-chunks" in argv else HUMAN_BENCH_CHUNKS
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1338,6 +1374,13 @@ def main(argv):
     say("probe", device=name, capability=list(cap), smi=smi, nvcc=nvcc,
         torch=torch.__version__, build_seconds=build_s, ptxas=ptxas,
         seconds=time.perf_counter() - t0)
+
+    # phase 9 alone at another size (the human-scale runs)
+    rec_h = {k.name: [] for k in (_kernels.SMEM, _kernels.SA,
+                                  _kernels.EXTEND)}
+    if human:
+        human_scale(human, "--repeats" in argv, human_chunks, rec_h)
+        return 0
 
     # bacterial-size dataset (cached in a git-ignored directory)
     if not quick:
@@ -1485,7 +1528,12 @@ def main(argv):
     # 8. the other commands and the entry points, each in its own process
     commands(quick)
 
-    kernels = kernels_line(rec, launches, buckets)
+    # 9. the human-scale regime: run3g over tables past the L2, counted
+    # run by run
+    if not quick:
+        human_scale(HUMAN_MBP, False, human_chunks, rec_h, rec)
+
+    kernels = kernels_line(rec, launches, buckets, rec_h)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1494,9 +1542,10 @@ def main(argv):
     return 0
 
 
-def kernels_line(rec, launches, buckets):
+def kernels_line(rec, launches, buckets, rec_h):
     """The kernels JSON record: one entry per kernel, from its records
-    (rec), its launches on its path and its per-bucket launches."""
+    (rec), its launches on its path and its per-bucket launches, and for
+    the kernels of phase 9 their record there (rec_h, `human_scale`)."""
     from bwamem_tpu_torch.ops import _kernels
     kernels = []
     for k in _kernels.KERNELS:
@@ -1522,10 +1571,16 @@ def kernels_line(rec, launches, buckets):
                 for n in (GATHER_IDS, GATHER_IDS_BIG)
                 for g in [[r for r in rec[k.name]
                            if r.get("bucket") == f"ids{n}"][-1]]}
+        human = rec_h.get(k.name, [])
+        if human:
+            extra["human_scale"] = {key: human[-1].get(key) for key in (
+                "index", "ms", "profiler_ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "max_abs_err", "chain_floor_ms",
+                "sa_intv")}
         kernels.append(dict(
             name=k.name, route="cuda", source=k.source,
             replaces=k.replaces, launches=launches[k.name],
-            max_abs_err=max(r["max_abs_err"] for r in rec[k.name]),
+            max_abs_err=max(r["max_abs_err"] for r in rec[k.name] + human),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main.get("library_ms"), index=main["index"],
@@ -2553,6 +2608,189 @@ def commands(quick):
             raise RuntimeError(f"run_eval: {run_eval}")
     say("commands", seconds=seconds, identical=identical,
         graft_entry=graft, bench=bench, run_eval=run_eval,
+        phase_seconds=time.perf_counter() - t_phase)
+
+
+HUMAN_MBP = 128   # phase 9's genome: a 128 MB occ table and .sa8, ~5x the L2
+HUMAN_READS = ["--n-se", "2000", "--n-pe", "1000"]
+# the kernels' reads: 4 x 8,192 distinct SE reads, as phase 2 takes from
+# the 100k set (the superstep's lanes, the extension's seeds)
+HUMAN_KERNEL_READS = ["--n-se", "32768"]
+N_DIFF_HUMAN = 2000   # reads of each diff (pairs: half)
+HUMAN_BENCH_CHUNKS = 2
+RUN3G = "bwamem_tpu_torch.run3g"
+
+
+def human_data(mbp, repeats):
+    """Phase 9's set at mbp Mbp, cached in .smoke_data: the genome from
+    tools/make_gbp_fasta.py (i.i.d., or ~45% repeats), the port's index
+    (built in memory at every size, BWAMEM_TPU_STREAM_INDEX=0), 2,000 SE
+    reads and 1,000 pairs from tools/sample_reads.py, and 32,768 SE reads
+    in kernel/ for the kernels.  Returns (its directory, the seconds of
+    each step made in this run); each step's marker is written when it
+    has ended."""
+    name = f"human_{mbp:g}mbp" + ("_repeats" if repeats else "")
+    dst = os.path.join(HERE, ".smoke_data", name)
+    os.makedirs(os.path.join(dst, "kernel"), exist_ok=True)
+    fa = os.path.join(dst, "genome.fa")
+    seconds = {}
+    for step, cmd in (
+            ("genome", ["tools/make_gbp_fasta.py", dst, "--mbp", f"{mbp:g}"]
+             + (["--repeats"] if repeats else [])),
+            ("index", ["-m", PORT_CLI, "index", fa]),
+            ("reads", ["tools/sample_reads.py", fa] + HUMAN_READS),
+            ("kernel_reads", ["tools/sample_reads.py", fa]
+             + HUMAN_KERNEL_READS + ["--out", os.path.join(dst, "kernel")])):
+        done = os.path.join(dst, f".{step}_complete")
+        if os.path.exists(done):
+            continue
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable] + cmd, check=True, cwd=HERE,
+                       stdout=subprocess.DEVNULL,
+                       env=dict(command_env(), BWAMEM_TPU_STREAM_INDEX="0"))
+        seconds[step] = time.perf_counter() - t0
+        open(done, "w").close()
+    return dst, seconds
+
+
+def run3g_log(err):
+    """The numbers of run3g's stderr: load and engine-up seconds, cdt,
+    sa_intv, the tables' bytes, each phase's seconds and stats line."""
+    out = {}
+    for ln in err.splitlines():
+        if not ln.startswith("[run3g] "):
+            continue
+        words = ln[len("[run3g] "):].split()
+        if words[0] in ("stats", "stages"):
+            out[f"{words[0]}_{words[1]}"] = json.loads(" ".join(words[2:]))
+        elif words[:2] == ["index", "loaded"]:
+            out["load_s"] = float(words[3])
+        elif words[:2] == ["engine", "up"]:
+            out["engine_up_s"] = float(words[3])
+            out.update(w.split("=", 1) for w in words if "=" in w)
+            out["table_bytes"] = int(out["table_bytes"]) + int(words[-2])
+        elif words[:2] == ["diff", "phase:"]:
+            out["diff_s"] = float(words[5])
+        elif words[0] == "bench:":
+            out["bench_s"] = float(words[4])
+        elif words[:3] == ["bench", "device", "busy:"]:
+            out["device_busy_s"] = float(words[3])
+            out["device_events"] = int(words[8][1:])
+            out["device_busy_share"] = out["device_busy_s"] / float(words[6])
+    return out
+
+
+def human_scale(mbp, repeats, bench_chunks, rec, rec2=None):
+    """Phase 9 at mbp Mbp: the host references (``bwamem_tpu.cli mem
+    --engine host`` and ``run3g host``, all at once), then ``run3g cuda``
+    on the 2,000 SE reads and the 1,000 pairs in this process, each
+    counted on its own (the superstep, SA walk and extend_lr launched),
+    its records byte-identical to both references, then a bench of
+    bench_chunks chunks; the same with BWAMEM_TPU_FORCE_I64=1 where the
+    index's coordinates are int32; then the superstep, the SA walk and
+    extend_lr against their plain versions at full width on this index
+    (rec), each beside phase 2's 4.64 Mbp record (rec2)."""
+    from bwamem_tpu_torch import run3g
+    from bwamem_tpu_torch.ops import _kernels
+    from bwamem_tpu_torch.ops.fm import coordinate_dtype
+    import torch
+    t_phase = time.perf_counter()
+    data, seconds = human_data(mbp, repeats)
+    fa = os.path.join(data, "genome.fa")
+    out = os.path.join(data, "out")
+    os.makedirs(out, exist_ok=True)
+
+    def o(name):
+        return os.path.join(out, name)
+
+    sets = (("se", ["reads_se.fq"], []),
+            ("pe", ["reads_1.fq", "reads_2.fq"], ["--pe"]))
+    jobs = {}
+    for tag, files, flag in sets:
+        jobs[f"jax_host_{tag}"] = [(JAX_CLI, ["mem", "--engine", "host", fa]
+                                    + [os.path.join(data, f) for f in files],
+                                    o(f"jax_host_{tag}.sam"))]
+        jobs[f"run3g_host_{tag}"] = [(RUN3G, ["host", data, str(N_DIFF_HUMAN)]
+                                      + flag, o(f"run3g_host_{tag}.sam"))]
+    seconds.update(run_jobs(jobs))
+    with open(os.path.join(fa + ".bwt"), "rb") as f:
+        seq_len = int.from_bytes(f.read(40)[32:40], "little")
+    wide = coordinate_dtype(seq_len) == torch.int64
+    forced = [""] + ([] if wide else ["1"])
+    runs = {}
+    for i64 in forced:
+        for tag, _, flag in sets:
+            name = tag + ("_i64" if i64 else "")
+            env = {"BWAMEM_TPU_FORCE_I64": i64} if i64 else {}
+            _kernels.reset_counts()
+            argv = ([DEVICE, data, str(N_DIFF_HUMAN), "--bench-chunks",
+                     str(bench_chunks)] + flag)
+            rc, err, dt = run_entry(run3g.main, argv, o(f"cuda_{name}.out"),
+                                    env)
+            if rc:
+                raise RuntimeError(f"run3g {argv} exited {rc}:\n{err}")
+            # the flat route's three kernels; on a repeat genome's
+            # seed-rich chunks the wave path may extend with extend2
+            launches = {k.name: k.launches for k in (
+                _kernels.SMEM, _kernels.SA, _kernels.EXTEND,
+                _kernels.EXTEND2, _kernels.GLOBAL2, _kernels.ALIGN2)}
+            need = ("smem_superstep", "sa_walk") + (
+                () if repeats else ("extend_lr",))
+            if not all(launches[n] for n in need) or not (
+                    launches["extend_lr"] or launches["extend2"]):
+                raise RuntimeError(f"a kernel of run3g cuda {name} did not "
+                                   f"launch: {launches}")
+            with open(o(f"cuda_{name}.out")) as f:
+                lines = f.read().splitlines(keepends=True)
+            bench = json.loads(lines.pop()) if bench_chunks else None
+            for ref in (f"jax_host_{tag}.sam", f"run3g_host_{tag}.sam"):
+                with open(o(ref)) as f:
+                    want = [ln for ln in f if not ln.startswith("@")]
+                if lines != want:
+                    raise RuntimeError(f"run3g cuda {name}: its records "
+                                       f"differ from {o(ref)}")
+            got = run3g_log(err)
+            if (i64 or wide) and got.get("cdt") != "int64":
+                raise RuntimeError(f"run3g {name}: cdt {got.get('cdt')}")
+            runs[name] = dict(reads=N_DIFF_HUMAN, identical=True,
+                              records=len(lines), seconds=dt, bench=bench,
+                              launches=launches, **got)
+    # the card's busy share: the SE run again in a process of its own,
+    # its bench traced by torch.profiler (run3g --profile)
+    if bench_chunks:
+        argv = [DEVICE, data, str(N_DIFF_HUMAN), "--bench-chunks",
+                str(bench_chunks), "--profile", o("profile")]
+        err, dt = run_module(RUN3G, argv, o("cuda_se_profiled.out"))
+        with open(o("cuda_se_profiled.out")) as f:
+            lines = f.read().splitlines(keepends=True)
+        bench = json.loads(lines.pop())
+        if lines != [ln for ln in open(o("run3g_host_se.sam"))
+                     if not ln.startswith("@")]:
+            raise RuntimeError("run3g cuda --profile: its records differ")
+        runs["se_profiled"] = dict(reads=N_DIFF_HUMAN, identical=True,
+                                   seconds=dt, bench=bench, **run3g_log(err))
+
+    # the kernels at full width on this index (8,192 distinct reads),
+    # each beside phase 2's
+    label = f"human_{mbp:g}Mbp" + ("_repeats" if repeats else "")
+    check_kernels(label, fa, os.path.join(data, "kernel", "reads_se.fq"),
+                  rec, main_only=True)
+
+    def brief(r):
+        return r and {k: r[k] for k in (
+            "index", "ms", "profiler_ms", "device_ms", "host_ms", "plain_ms",
+            "bound_ms", "bound_by", "max_abs_err", "lanes", "keys",
+            "live_keys", "longest_walk", "chain_ns_per_step",
+            "chain_floor_ms", "sa_intv") if k in r}
+
+    def phase2(name):
+        got = [r for r in (rec2 or {}).get(name, ())
+               if r.get("bucket") in (None, "L128", "LQ128")]
+        return brief(got[-1]) if got else None
+    say("human_scale", mbp=mbp, repeats=repeats, data=data,
+        seq_len=seq_len, data_seconds=seconds, runs=runs,
+        kernels={k: {"here": brief(v[-1]), "phase2": phase2(k)}
+                 for k, v in rec.items()},
         phase_seconds=time.perf_counter() - t_phase)
 
 

@@ -1216,3 +1216,185 @@ def test_bench_on_card(cuda, capsys, monkeypatch, pe):
     assert got["value"] > 0
     for k in (_kernels.SMEM, _kernels.EXTEND):
         assert k.launches > n0[k.name], k.name
+
+
+# ---- human scale: a table past 2^31 bytes, coordinates past 2^32 -------
+
+_WIDE_BLOCKS = (1 << 25) + (1 << 21)   # occ rows: 2.28 GB, 4.56 G symbols
+
+
+@pytest.fixture(scope="module")
+def wide_text(cuda):
+    """The occ table of a random 2-bit text of 128 * _WIDE_BLOCKS symbols
+    made on the card: random BWT words, and checkpoints that count them
+    (each block's counts of the blocks before it, 64-bit, split into
+    lo/hi int32 words), so every FM walk and interval stays inside the
+    table as on a real index.  Returns (blocks, L2 int64 [5], primary,
+    seq_len)."""
+    from bwamem_tpu_torch.ops.fm import _M32, _M55, _popcount32
+    g = torch.Generator(device=cuda).manual_seed(12)
+    n = _WIDE_BLOCKS
+    blocks = torch.empty((n, 16), dtype=torch.int32, device=cuda)
+    blocks[:, 8:] = torch.randint(-(1 << 31), 1 << 31, (n, 8),
+                                  dtype=torch.int32, device=cuda,
+                                  generator=g)
+    counts = torch.empty((n, 4), dtype=torch.int64, device=cuda)
+    step = 1 << 22
+    for lo in range(0, n, step):
+        w = blocks[lo:lo + step, 8:].to(torch.int64) & _M32
+        hb, lb = (w >> 1) & _M55, w & _M55
+        c = [_popcount32(x).sum(1) for x in (
+            lb & (~hb & _M32), hb & (~lb & _M32), hb & lb)]
+        counts[lo:lo + step] = torch.stack([128 - sum(c)] + c, dim=1)
+    before = counts.cumsum(0) - counts
+    lo32 = before & _M32
+    halves = torch.stack([torch.where(lo32 >= 1 << 31, lo32 - (1 << 32),
+                                      lo32), before >> 32], dim=2)
+    blocks[:, :8] = halves.reshape(n, 8).to(torch.int32)
+    seq_len = 128 * n
+    L2 = torch.zeros(5, dtype=torch.int64, device=cuda)
+    L2[1:] = counts.sum(0).cumsum(0)
+    del counts, before, lo32, halves
+    assert int(L2[4]) == seq_len
+    primary = int(torch.randint(0, seq_len, (1,), generator=g,
+                                device=cuda))
+    return blocks, L2, primary, seq_len
+
+
+def _wide_index(wide_text, sa_intv):
+    """A DeviceFmIndex over wide_text with a random int64 SA sample of
+    interval sa_intv, its values past 2^32."""
+    from bwamem_tpu_torch.ops.fm import DeviceFmIndex
+    blocks, L2, primary, seq_len = wide_text
+    g = torch.Generator(device=blocks.device).manual_seed(sa_intv)
+    sa = torch.randint(0, 1 << 40, (seq_len // sa_intv + 1,),
+                       dtype=torch.int64, device=blocks.device, generator=g)
+    return DeviceFmIndex(blocks, L2, primary, seq_len, sa, sa_intv)
+
+
+@pytest.mark.parametrize("sa_intv", [8, 32])
+def test_sa_kernel_on_a_wide_table(wide_text, sa_intv):
+    """The SA walk on a table of more than 2^31 bytes, keys past 2^31
+    and 2^32, int64 SA values: equal to the plain version."""
+    from bwamem_tpu_torch.ops.fm import sa_lookup_batched, sa_walk_cuda
+    d = _wide_index(wide_text, sa_intv)
+    assert d.blocks.nbytes > 1 << 31 and d.seq_len_int > 1 << 32
+    rng = np.random.default_rng(sa_intv)
+    keys = rng.integers(0, d.seq_len_int + 1, 32768)
+    keys[:8] = [0, d.primary_int, d.seq_len_int, d.seq_len_int - 1,
+                (1 << 31) - 1, 1 << 31, 1 << 32, (1 << 32) + 1]
+    keys = torch.from_numpy(keys).to(d.device)
+    for steps in (128, 3):
+        kv, ko = sa_walk_cuda(d, keys, steps)
+        pv, po = sa_lookup_batched(d, keys, steps)
+        assert kv.dtype == torch.int64
+        assert torch.equal(ko, po) and torch.equal(kv, pv)
+        assert int((kv > 1 << 32).sum()) > 0
+
+
+@pytest.mark.parametrize("M", [16, 32])
+def test_superstep_kernel_on_a_wide_table(wide_text, M):
+    """The superstep over the same table, at both interval buffers:
+    random 101 bp queries (a few N bases), intervals past 2^32; equal to
+    the plain version on every slot the consumer reads."""
+    from bwamem_tpu_torch.ops.smem import superstep_cuda, superstep_plain
+    d = _wide_index(wide_text, 32)
+    dev = d.device
+    B, L, oc = 512, 128, 48
+    rng = np.random.default_rng(3)
+    q = np.full((B, L), 4, np.int8)
+    q[:, :101] = rng.integers(0, 4, (B, 101))
+    q[rng.random((B, L)) < 0.002] = 4
+    qlen = np.full(B, 101, np.int32)
+    args = (d, torch.from_numpy(q[:, 0::2] | (q[:, 1::2] << 4)).to(dev),
+            torch.from_numpy(qlen).to(dev),
+            torch.ones(B, dtype=torch.int64, device=dev),
+            torch.ones(B, dtype=torch.bool, device=dev),
+            torch.full((B,), 29, dtype=torch.int32, device=dev),
+            torch.full((B,), 10, dtype=torch.int32, device=dev), L, M, oc)
+    k = superstep_cuda(*args)
+    p = superstep_plain(*args)
+    assert torch.equal(k[5], p[5])
+    ok = ~p[5]
+    assert torch.equal(k[4][ok], p[4][ok])
+    slot = (torch.arange(oc, device=dev) < p[4].unsqueeze(1)) \
+        & ok.unsqueeze(1)
+    for a, b in zip(k[:4], p[:4]):
+        assert torch.equal(a[slot], b[slot])
+    assert int((p[0][slot] > 1 << 32).sum()) > 0
+
+
+def test_extension_kernel_at_wide_reference_begins(engine, data_dir):
+    """extend_lr with the seeds' reference begins and windows moved past
+    2^32 doubled bases: the kernel equals the plain version, and the
+    reference coordinates it returns are the bundled ones moved."""
+    from bwamem_tpu_torch.core import nfinalize
+    from bwamem_tpu_torch.ops.ksw import extend_lr_cuda, extend_lr_plain
+    eng, bns = engine
+    opt = _opt()
+    reads = _reads(data_dir, 200)
+    flat = eng.chain_batch(opt, reads).flat
+    pk = nfinalize.pack_extlr_native(opt, bns.l_pac, bns.pac, reads, flat,
+                                     128, 544)
+    g = np.nonzero(pk["served"] == 0)[0]
+    off = (3 << 32) + 12345
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(eng.device)
+
+    def args(shift):
+        return (T(pk["lq_pk"][g]), T(pk["lt_pk"][g]), T(pk["llq"][g]),
+                T(pk["llt"][g]), T(pk["rq_pk"][g]), T(pk["rt_pk"][g]),
+                T(pk["rlq"][g]), T(pk["rlt"][g]), eng._mat_dev(opt),
+                opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w,
+                opt.pen_clip5, opt.pen_clip3, opt.zdrop, T(pk["scs"][g]),
+                T(pk["sqb"][g]), T(pk["srb"][g] + shift),
+                T(pk["rmax0"][g] + shift), T(pk["lqv"][g]),
+                T(pk["slv"][g]), 128, 544)
+    near = extend_lr_cuda(*args(0))
+    far = extend_lr_cuda(*args(off))
+    for a, b in zip(far, extend_lr_plain(*args(off))):
+        assert torch.equal(a, b)
+    # (score, truesc, qb, rb, qe, re, aw0, aw1): rb and re move
+    for i, (a, b) in enumerate(zip(far, near)):
+        assert torch.equal(a, b + off if i in (3, 5) else b), i
+
+
+@pytest.mark.parametrize("LQ,LT", [(128, 544), (256, 800)])
+def test_build_rows_kernel_at_wide_reference_begins(cuda, LQ, LT):
+    """build_rows on a 2^31 + 2^20 + 5 base reference: seeds on the
+    reverse strand with begins past 2^32 doubled bases and on the forward
+    strand past 2^31, against the plain version."""
+    from bwamem_tpu_torch.ops.extbuild import (build_rows_cuda,
+                                               build_rows_plain)
+    l_pac, B, W = (1 << 31) + (1 << 20) + 5, 4096, 256
+    rng = np.random.default_rng(LQ)
+    g = torch.Generator(device=cuda).manual_seed(LQ)
+    pac = torch.randint(0, 256, ((l_pac + 3) // 4,), dtype=torch.uint8,
+                        device=cuda, generator=g)
+    lanes = _wide_lanes(rng, l_pac, B, W, LT)
+    reads = torch.from_numpy(rng.integers(0, 4, (64, W)).astype(np.int8))
+    args = (reads.to(cuda), pac, l_pac,
+            *(torch.from_numpy(a).to(cuda) for a in lanes), LQ, LT)
+    assert int(args[6].max()) > 1 << 32
+    for a, b in zip(build_rows_cuda(*args), build_rows_plain(*args)):
+        assert torch.equal(a, b)
+
+
+def _wide_lanes(rng, l_pac, B, W, LT):
+    """Seeds (rid, qb0, slen, rb0, rmax0, rmax1, lquery) of 64 reads of W
+    bases on an l_pac-base reference: half on the reverse strand, ending
+    within 4 kbp of the doubled reference's end (begins past 2^32), half
+    on the forward strand within 4 kbp of l_pac, windows inside their
+    strand and their target rows at most LT bases."""
+    rid = rng.integers(0, 64, B).astype(np.int32)
+    slen = rng.integers(19, 60, B)
+    qb0 = rng.integers(0, 60, B)
+    lquery = np.minimum(qb0 + slen + rng.integers(0, 100, B), W)
+    rev = np.arange(B) % 2 == 0
+    end = np.where(rev, 2 * l_pac, l_pac)
+    rmax1 = end - rng.integers(0, 2000, B)
+    rb0 = rmax1 - slen - rng.integers(0, LT // 2, B)
+    rmax0 = rb0 - rng.integers(0, LT // 2, B)
+    return (rid, qb0.astype(np.int32), slen.astype(np.int32), rb0, rmax0,
+            rmax1, lquery.astype(np.int32))

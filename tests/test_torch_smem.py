@@ -71,7 +71,8 @@ def queries(data_dir):
     (16, 12 * B, 8 * B),     # the seeding path's shapes
     (2, 12 * B, 8 * B),      # interval buffers overflow
     (16, 96, 16),            # compact wire spills, key expansion overflows
-], ids=["main", "m2_overflow", "tight_caps"])
+    (32, 12 * B, 8 * B),     # the buffer of indexes past 2^26 doubled bases
+], ids=["main", "m2_overflow", "tight_caps", "m32"])
 def test_superstep_sa_matches_jax(indexes, queries, M, GCAP, KEY_CAP):
     from bwamem_tpu.ops.smem import smem_superstep_sa as jax_sssa
     from bwamem_tpu_torch.ops.smem import smem_superstep_sa
@@ -158,8 +159,9 @@ def _pad(qs, L):
 
 
 @pytest.mark.parametrize("L,M", [(128, 16), (256, 16), (512, 16),
-                                 (256, 2)],
-                         ids=["L128", "L256", "L512", "L256_m2_overflow"])
+                                 (256, 2), (128, 32)],
+                         ids=["L128", "L256", "L512", "L256_m2_overflow",
+                              "L128_m32"])
 def test_iter_step_matches_jax(small_fm, L, M):
     """One iterator step (pass 1, the re-seeding test, pass 2) against
     JAX smem_iter_step(PALLAS=False): ambiguous start bases, inactive
