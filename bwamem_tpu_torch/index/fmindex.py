@@ -268,11 +268,10 @@ class FmIndex:
         if not _os.path.exists(path):
             return False
         with open(path, "rb") as f:
-            head = np.fromfile(f, dtype="<u8", count=2)
-            if len(head) != 2 or int(head[0]) != self.seq_len:
+            head = _sa8_header(f)
+            if head is None or head[0] != self.seq_len:
                 return False
-            intv = int(head[1])
-            n8 = (self.seq_len + intv) // intv
+            _, intv, n8 = head
             sa8 = np.empty(n8, dtype=np.int64)
             sa8[0] = -1
             if not _read_into(f, sa8[1:]):
@@ -312,6 +311,26 @@ class FmIndex:
                     raise ValueError(f"{sa_path}: fewer than {n_sa - 1} "
                                      f"SA values")
         return fm
+
+
+def _sa8_header(f) -> Optional[Tuple[int, int, int]]:
+    """The .sa8 header at the open file f's start: (seq_len, interval,
+    the sample's length with its leading -1); None where there is none."""
+    head = np.fromfile(f, dtype="<u8", count=2)
+    if len(head) != 2 or not head[1]:
+        return None
+    seq_len, intv = int(head[0]), int(head[1])
+    return seq_len, intv, (seq_len + intv) // intv
+
+
+def sa8_nbytes(path: str) -> Optional[int]:
+    """The bytes of the .sa8 sample at path as restore_sa8 loads it
+    (int64 values), from the file's header; None where there is none."""
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        head = _sa8_header(f)
+    return None if head is None else head[2] * 8
 
 
 def _read_into(f, dst: np.ndarray) -> bool:

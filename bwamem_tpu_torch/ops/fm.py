@@ -36,12 +36,13 @@ import torch
 from torch import nn
 
 from . import _kernels
+from ..index.fmindex import sa8_nbytes
 
 WORDS_PER_BLOCK = 16
 _M55 = 0x55555555
 _M32 = 0xFFFFFFFF
 UPLOAD_ROWS = 1 << 22   # rows a slice of a table's upload (256 MiB of occ)
-SA8_MAX_BYTES = 2048 << 20   # the JAX package's BWAMEM_TPU_SA8_MAX_MB
+SA8_MAX_BYTES = 2048 << 20   # BWAMEM_TPU_SA8_MAX_MB's default, 2048 MiB
 
 
 def coordinate_dtype(seq_len: int) -> torch.dtype:
@@ -56,9 +57,18 @@ def coordinate_dtype(seq_len: int) -> torch.dtype:
 
 def dense_sa_fits(nbytes: int) -> bool:
     """Whether a .sa8 sample of nbytes (as loaded, int64) serves the SA
-    walk: up to SA8_MAX_BYTES; past it the sparse .sa (interval 32)
-    does."""
-    return nbytes <= SA8_MAX_BYTES
+    walk: up to the cap, BWAMEM_TPU_SA8_MAX_MB MiB (a float, as the JAX
+    package reads it) or SA8_MAX_BYTES where it is unset; past it the
+    sparse .sa (interval 32) does."""
+    mb = os.environ.get("BWAMEM_TPU_SA8_MAX_MB")
+    return nbytes <= (SA8_MAX_BYTES if mb is None else float(mb) * (1 << 20))
+
+
+def dense_sa_serves(prefix: str) -> bool:
+    """Whether the index at prefix has a .sa8 sample that from_host
+    would take, reckoned from the file's header without loading it."""
+    nbytes = sa8_nbytes(prefix + ".sa8")
+    return nbytes is not None and dense_sa_fits(nbytes)
 
 
 def upload(dst: torch.Tensor, src: np.ndarray) -> None:

@@ -20,15 +20,21 @@ line follows the records:
     {"metric": "mem_align_throughput_3g", "value": N, "unit": "reads/s",
      "vs_baseline": N}
 
-stderr has the index load and engine-up seconds, the coordinate dtype,
-the SA sample's interval and the tables' bytes on the device, each
-phase's reads/s and, after each phase, the engine's ``kernel_time_by_tag``
-(device time per tag and the host-route counters: ``ovf_*``,
-``host_routed_reads``, ``smem_host_tail`` where they arose) as a JSON
-line, and the bench's seconds in each engine stage (``stages bench``).
-With --profile DIR, torch.profiler traces the card's work in the bench
-into DIR and stderr has the seconds in which the card ran anything, the
-union of the trace's device events, beside the bench's.
+The dense SA sample (.sa8) is read only in the cuda and cpu modes, and
+there only where it serves (ops/fm.py dense_sa_fits:
+BWAMEM_TPU_SA8_MAX_MB, 2048 MiB by default); past the cap the SA walk
+takes the sparse .sa.
+
+stderr has the index load seconds and seq_len, the engine-up seconds,
+the coordinate dtype, the SA sample's interval and the tables' bytes on
+the device, each phase's reads/s and, after each phase, the engine's
+``kernel_time_by_tag`` (device time per tag and the host-route counters:
+``ovf_*``, ``host_routed_reads``, ``smem_host_tail`` where they arose)
+as a JSON line, and the bench's seconds in each engine stage
+(``stages bench``).  With --profile DIR, torch.profiler traces the
+card's work in the bench into DIR and stderr has the seconds in which
+the card ran anything, the union of the trace's device events, beside
+the bench's.
 
 Modes: ``cuda`` the kernels on the card (exits 1 where there is none;
 it never carries on on the CPU); ``cpu`` the plain versions on the CPU;
@@ -123,9 +129,14 @@ def main(argv=None) -> int:
     from bwamem_tpu_torch.io.fastq import ChunkReader
 
     t0 = time.perf_counter()
-    # the dense SA sample serves only the device's SA walk
-    fm, bns = load_index(os.path.join(args.data, "genome.fa"),
-                         load_sa8=args.mode != "host")
+    prefix = os.path.join(args.data, "genome.fa")
+    # the dense SA sample serves only the device's SA walk, and there
+    # only within BWAMEM_TPU_SA8_MAX_MB: past it, it is not read at all
+    load_sa8 = False
+    if args.mode != "host":
+        from bwamem_tpu_torch.ops.fm import dense_sa_serves
+        load_sa8 = dense_sa_serves(prefix)
+    fm, bns = load_index(prefix, load_sa8=load_sa8)
     pac = bns.pac
     log(f"index loaded in {time.perf_counter() - t0:.2f} s "
         f"(seq_len={int(fm.seq_len)})")

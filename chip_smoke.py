@@ -11,8 +11,11 @@
                                     # 4's timed 100k SE and 20k PE runs,
                                     # N times (an A/B of the main path)
     python3 chip_smoke.py --human MBP [--repeats] [--bench-chunks K]
+                          [--sa8-mb MB]
                                     # phases 1 and 9 on a genome of MBP
                                     # Mbp (~45% repeats), a K-chunk bench
+                                    # (--sa8-mb: the SE run and the
+                                    # kernels again at that .sa8 cap)
 
 Phases, each printing one line with its own numbers and seconds:
 
@@ -160,20 +163,25 @@ Phases, each printing one line with its own numbers and seconds:
 
 9. human scale: ``python -m bwamem_tpu_torch.run3g`` on a 128 Mbp
    genome (tools/make_gbp_fasta.py, the port's ``cli index``, 2,000 SE
-   reads and 1,000 pairs from tools/sample_reads.py; the index build's
-   seconds printed): the host references first, all at once
+   reads and 1,000 pairs from tools/sample_reads.py; each step's seconds
+   and peak RSS printed, and seq_len, held to twice the genome's bases):
+   the host references first, all at once
    (``bwamem_tpu.cli mem --engine host`` and ``run3g host``), then
    ``run3g cuda`` in this process on the SE reads and the pairs, each
    counted on its own, its records byte-identical to both, then a
    2-chunk bench; again with BWAMEM_TPU_FORCE_I64=1 (the int64 path over
    tables past the L2); the SE run once more in its own process with its
    bench traced by torch.profiler (``run3g --profile``: the card's busy
-   share); then the superstep, the SA walk and extend_lr against their
+   share); the SE diff once more with BWAMEM_TPU_ONCHIP_EXT=1 (the
+   extension rows built on the card: build_rows launched, the same
+   records); then the superstep, the SA walk and extend_lr against their
    plain versions at full width on this index (tolerance zero), on
    32,768 distinct SE reads of their own, each beside its phase 2 record
-   at 4.64 Mbp.  The line has each run's load and engine-up seconds,
-   cdt, sa_intv, table bytes, host-route counters, bench stages and busy
-   share, and the phase's seconds.
+   at 4.64 Mbp.  With --sa8-mb MB, the SE run and the three kernels once
+   more with BWAMEM_TPU_SA8_MAX_MB=MB (at human scale the dense .sa8 on
+   the card beside the sparse .sa).  The line has each run's load and
+   engine-up seconds, cdt, sa_intv, table bytes, host-route counters,
+   bench stages and busy share, and the phase's seconds.
 
 Launch counts are zeroed just before each path and read just after: the
 default flat route (goldens, real size, long reads: superstep, SA walk
@@ -185,13 +193,14 @@ global2, align2), the microbench sweep (gather_rows,
 occ4, row_chain, affine_loop), the reads mesh of phase 6 (superstep,
 SA walk, extend_lr, extend2, global2) and the split tables of phase 7
 (the same and smem1_step) and each run3g run of phase 9 (superstep, SA
-walk, extend_lr).  The last three lines are nvidia-smi's
-name and power limit, the kernels' JSON record (launches, times, bounds,
-per-bucket launches and times) and the result JSON; any failure exits
-non-zero without them.
+walk, extend_lr; build_rows on the ONCHIP_EXT=1 diff).  The last three
+lines are nvidia-smi's name and power limit, the kernels' JSON record
+(launches, times, bounds, per-bucket launches and times) and the result
+JSON; any failure exits non-zero without them.
 """
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -239,23 +248,32 @@ def say(phase, **kv):
     print(json.dumps(dict(phase=phase, **kv)), flush=True)
 
 
-def run_entry(main, argv, out_path, env=None):
-    """An entry point's main(argv) in this process: stdout to out_path,
-    stderr captured, env set over os.environ for the call and os.environ
-    as it was afterwards.  Returns (return code, stderr text, seconds)."""
+@contextlib.contextmanager
+def environ(env):
+    """env set over os.environ for the block, os.environ as it was
+    afterwards."""
     saved = dict(os.environ)
     os.environ.update(env or {})
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def run_entry(main, argv, out_path, env=None):
+    """An entry point's main(argv) in this process: stdout to out_path,
+    stderr captured, env set over os.environ for the call.  Returns
+    (return code, stderr text, seconds)."""
     err = io.StringIO()
     so, se = sys.stdout, sys.stderr
     t0 = time.perf_counter()
     try:
-        with open(out_path, "w") as f:
+        with environ(env), open(out_path, "w") as f:
             sys.stdout, sys.stderr = f, err
             rc = main(argv)
     finally:
         sys.stdout, sys.stderr = so, se
-        os.environ.clear()
-        os.environ.update(saved)
     return rc, err.getvalue(), time.perf_counter() - t0
 
 
@@ -647,7 +665,9 @@ def check_kernels(label, idx_prefix, fq, rec, main_only=False):
     from bwamem_tpu_torch.ops.engine import TorchSeedingEngine
     t0 = time.perf_counter()
     dev = torch.device(DEVICE)
-    fm_host, bns = load_index(idx_prefix)
+    # the .sa8 read only where it serves
+    fm_host, bns = load_index(idx_prefix,
+                              load_sa8=tfm.dense_sa_serves(idx_prefix))
     eng = TorchSeedingEngine(fm_host, dev)
     d = eng.dfm
     sdr = eng.seeder
@@ -1335,6 +1355,8 @@ def main(argv):
         else 0
     human_chunks = int(argv[argv.index("--bench-chunks") + 1]) \
         if "--bench-chunks" in argv else HUMAN_BENCH_CHUNKS
+    sa8_mb = float(argv[argv.index("--sa8-mb") + 1]) if "--sa8-mb" in argv \
+        else None
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1379,7 +1401,8 @@ def main(argv):
     rec_h = {k.name: [] for k in (_kernels.SMEM, _kernels.SA,
                                   _kernels.EXTEND)}
     if human:
-        human_scale(human, "--repeats" in argv, human_chunks, rec_h)
+        human_scale(human, "--repeats" in argv, human_chunks, rec_h,
+                    sa8_mb=sa8_mb)
         return 0
 
     # bacterial-size dataset (cached in a git-ignored directory)
@@ -2621,19 +2644,38 @@ HUMAN_BENCH_CHUNKS = 2
 RUN3G = "bwamem_tpu_torch.run3g"
 
 
+# run_peak's parent of the measured command: a child's rusage counts the
+# RSS it inherits at the fork, so the command is forked from this small
+# process, not from this script (gigabytes with the card's context)
+PEAK_PARENT = ("import resource, subprocess, sys; "
+               "subprocess.run(sys.argv[1:], check=True, "
+               "stdout=subprocess.DEVNULL); "
+               "print(resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss)")
+
+
+def run_peak(cmd, env):
+    """``python cmd`` in a subprocess from the checkout, stdout dropped:
+    (seconds, its peak RSS in bytes).  A non-zero exit fails."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", PEAK_PARENT, sys.executable]
+                         + cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                         check=True)
+    return time.perf_counter() - t0, int(res.stdout.split()[-1]) << 10
+
+
 def human_data(mbp, repeats):
     """Phase 9's set at mbp Mbp, cached in .smoke_data: the genome from
     tools/make_gbp_fasta.py (i.i.d., or ~45% repeats), the port's index
     (built in memory at every size, BWAMEM_TPU_STREAM_INDEX=0), 2,000 SE
     reads and 1,000 pairs from tools/sample_reads.py, and 32,768 SE reads
-    in kernel/ for the kernels.  Returns (its directory, the seconds of
-    each step made in this run); each step's marker is written when it
-    has ended."""
+    in kernel/ for the kernels.  Returns (its directory, the seconds and
+    the peak RSS in GiB of each step made in this run); each step's
+    marker is written when it has ended."""
     name = f"human_{mbp:g}mbp" + ("_repeats" if repeats else "")
     dst = os.path.join(HERE, ".smoke_data", name)
     os.makedirs(os.path.join(dst, "kernel"), exist_ok=True)
     fa = os.path.join(dst, "genome.fa")
-    seconds = {}
+    seconds, peak = {}, {}
     for step, cmd in (
             ("genome", ["tools/make_gbp_fasta.py", dst, "--mbp", f"{mbp:g}"]
              + (["--repeats"] if repeats else [])),
@@ -2644,18 +2686,19 @@ def human_data(mbp, repeats):
         done = os.path.join(dst, f".{step}_complete")
         if os.path.exists(done):
             continue
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable] + cmd, check=True, cwd=HERE,
-                       stdout=subprocess.DEVNULL,
-                       env=dict(command_env(), BWAMEM_TPU_STREAM_INDEX="0"))
-        seconds[step] = time.perf_counter() - t0
+        seconds[step], rss = run_peak(
+            cmd, dict(command_env(), BWAMEM_TPU_STREAM_INDEX="0"))
+        peak[step] = rss / (1 << 30)
         open(done, "w").close()
-    return dst, seconds
+        say("human_step", step=step, seconds=seconds[step],
+            peak_rss_gib=peak[step])
+    return dst, seconds, peak
 
 
 def run3g_log(err):
-    """The numbers of run3g's stderr: load and engine-up seconds, cdt,
-    sa_intv, the tables' bytes, each phase's seconds and stats line."""
+    """The numbers of run3g's stderr: load and engine-up seconds, seq_len,
+    cdt, sa_intv, the tables' bytes, each phase's seconds and stats
+    line."""
     out = {}
     for ln in err.splitlines():
         if not ln.startswith("[run3g] "):
@@ -2665,6 +2708,7 @@ def run3g_log(err):
             out[f"{words[0]}_{words[1]}"] = json.loads(" ".join(words[2:]))
         elif words[:2] == ["index", "loaded"]:
             out["load_s"] = float(words[3])
+            out["seq_len"] = int(words[5][len("(seq_len="):-1])
         elif words[:2] == ["engine", "up"]:
             out["engine_up_s"] = float(words[3])
             out.update(w.split("=", 1) for w in words if "=" in w)
@@ -2680,22 +2724,26 @@ def run3g_log(err):
     return out
 
 
-def human_scale(mbp, repeats, bench_chunks, rec, rec2=None):
+def human_scale(mbp, repeats, bench_chunks, rec, rec2=None, sa8_mb=None):
     """Phase 9 at mbp Mbp: the host references (``bwamem_tpu.cli mem
     --engine host`` and ``run3g host``, all at once), then ``run3g cuda``
     on the 2,000 SE reads and the 1,000 pairs in this process, each
     counted on its own (the superstep, SA walk and extend_lr launched),
     its records byte-identical to both references, then a bench of
     bench_chunks chunks; the same with BWAMEM_TPU_FORCE_I64=1 where the
-    index's coordinates are int32; then the superstep, the SA walk and
-    extend_lr against their plain versions at full width on this index
-    (rec), each beside phase 2's 4.64 Mbp record (rec2)."""
+    index's coordinates are int32; the SE bench traced in a process of
+    its own; the SE diff with the extension rows built on the card
+    (BWAMEM_TPU_ONCHIP_EXT=1, build_rows launched); then the superstep,
+    the SA walk and extend_lr against their plain versions at full width
+    on this index (rec), each beside phase 2's 4.64 Mbp record (rec2).
+    With sa8_mb, the SE run and the three kernels once more with
+    BWAMEM_TPU_SA8_MAX_MB=sa8_mb (the .sa8 sample where it fits)."""
     from bwamem_tpu_torch import run3g
     from bwamem_tpu_torch.ops import _kernels
-    from bwamem_tpu_torch.ops.fm import coordinate_dtype
+    from bwamem_tpu_torch.ops.fm import coordinate_dtype, dense_sa_serves
     import torch
     t_phase = time.perf_counter()
-    data, seconds = human_data(mbp, repeats)
+    data, seconds, peak = human_data(mbp, repeats)
     fa = os.path.join(data, "genome.fa")
     out = os.path.join(data, "out")
     os.makedirs(out, exist_ok=True)
@@ -2703,6 +2751,14 @@ def human_scale(mbp, repeats, bench_chunks, rec, rec2=None):
     def o(name):
         return os.path.join(out, name)
 
+    # the index's doubled length: twice the genome's bases as made
+    with open(fa + ".bwt", "rb") as f:
+        seq_len = int.from_bytes(f.read(40)[32:40], "little")
+    with open(fa + ".ann") as f:
+        l_pac = int(f.readline().split()[0])
+    if l_pac != int(mbp * 1e6) or seq_len != 2 * l_pac:
+        raise RuntimeError(f"seq_len {seq_len}, l_pac {l_pac}: not twice "
+                           f"the genome's {int(mbp * 1e6)} bases")
     sets = (("se", ["reads_se.fq"], []),
             ("pe", ["reads_1.fq", "reads_2.fq"], ["--pe"]))
     jobs = {}
@@ -2713,83 +2769,118 @@ def human_scale(mbp, repeats, bench_chunks, rec, rec2=None):
         jobs[f"run3g_host_{tag}"] = [(RUN3G, ["host", data, str(N_DIFF_HUMAN)]
                                       + flag, o(f"run3g_host_{tag}.sam"))]
     seconds.update(run_jobs(jobs))
-    with open(os.path.join(fa + ".bwt"), "rb") as f:
-        seq_len = int.from_bytes(f.read(40)[32:40], "little")
     wide = coordinate_dtype(seq_len) == torch.int64
-    forced = [""] + ([] if wide else ["1"])
+
+    def records_match(path, tag, what, chunks):
+        """path's records against both references of the tag's set; the
+        bench's JSON line (the last) taken off first where chunks ran."""
+        with open(path) as f:
+            lines = f.read().splitlines(keepends=True)
+        bench = json.loads(lines.pop()) if chunks else None
+        for ref in (f"jax_host_{tag}.sam", f"run3g_host_{tag}.sam"):
+            with open(o(ref)) as f:
+                want = [ln for ln in f if not ln.startswith("@")]
+            if lines != want:
+                raise RuntimeError(f"{what}: its records differ from "
+                                   f"{o(ref)}")
+        return len(lines), bench
+
+    def cuda_run(name, tag, flag, env, chunks, build=False):
+        """run3g cuda in this process, counted on its own: the flat
+        route's kernels (and build_rows) launched; on a repeat genome's
+        seed-rich chunks the wave path may extend with extend2."""
+        _kernels.reset_counts()
+        argv = ([DEVICE, data, str(N_DIFF_HUMAN), "--bench-chunks",
+                 str(chunks)] + flag)
+        rc, err, dt = run_entry(run3g.main, argv, o(f"cuda_{name}.out"),
+                                env)
+        with open(o(f"cuda_{name}.err"), "w") as f:
+            f.write(err)
+        if rc:
+            raise RuntimeError(f"run3g {argv} exited {rc}:\n{err}")
+        launches = {k.name: k.launches for k in (
+            _kernels.SMEM, _kernels.SA, _kernels.EXTEND, _kernels.EXTEND2,
+            _kernels.GLOBAL2, _kernels.ALIGN2, _kernels.BUILD)}
+        need = ("smem_superstep", "sa_walk") + (() if repeats else (
+            ("extend_lr",) + (("build_rows",) if build else ())))
+        if not all(launches[n] for n in need) or not (
+                launches["extend_lr"] or launches["extend2"]):
+            raise RuntimeError(f"a kernel of run3g cuda {name} did not "
+                               f"launch: {launches}")
+        records, bench = records_match(o(f"cuda_{name}.out"), tag,
+                                       f"run3g cuda {name}", chunks)
+        got = run3g_log(err)
+        if got.get("seq_len") != seq_len:
+            raise RuntimeError(f"run3g {name}: seq_len {got.get('seq_len')}")
+        if (env.get("BWAMEM_TPU_FORCE_I64") or wide) and \
+                got.get("cdt") != "int64":
+            raise RuntimeError(f"run3g {name}: cdt {got.get('cdt')}")
+        gc.collect()   # the run's index, gigabytes at human scale
+        say("human_run", run=name, seconds=dt, bench=bench)
+        return dict(reads=N_DIFF_HUMAN, identical=True, records=records,
+                    seconds=dt, bench=bench, launches=launches, **got)
+
     runs = {}
-    for i64 in forced:
+    for i64 in [""] + ([] if wide else ["1"]):
         for tag, _, flag in sets:
             name = tag + ("_i64" if i64 else "")
-            env = {"BWAMEM_TPU_FORCE_I64": i64} if i64 else {}
-            _kernels.reset_counts()
-            argv = ([DEVICE, data, str(N_DIFF_HUMAN), "--bench-chunks",
-                     str(bench_chunks)] + flag)
-            rc, err, dt = run_entry(run3g.main, argv, o(f"cuda_{name}.out"),
-                                    env)
-            if rc:
-                raise RuntimeError(f"run3g {argv} exited {rc}:\n{err}")
-            # the flat route's three kernels; on a repeat genome's
-            # seed-rich chunks the wave path may extend with extend2
-            launches = {k.name: k.launches for k in (
-                _kernels.SMEM, _kernels.SA, _kernels.EXTEND,
-                _kernels.EXTEND2, _kernels.GLOBAL2, _kernels.ALIGN2)}
-            need = ("smem_superstep", "sa_walk") + (
-                () if repeats else ("extend_lr",))
-            if not all(launches[n] for n in need) or not (
-                    launches["extend_lr"] or launches["extend2"]):
-                raise RuntimeError(f"a kernel of run3g cuda {name} did not "
-                                   f"launch: {launches}")
-            with open(o(f"cuda_{name}.out")) as f:
-                lines = f.read().splitlines(keepends=True)
-            bench = json.loads(lines.pop()) if bench_chunks else None
-            for ref in (f"jax_host_{tag}.sam", f"run3g_host_{tag}.sam"):
-                with open(o(ref)) as f:
-                    want = [ln for ln in f if not ln.startswith("@")]
-                if lines != want:
-                    raise RuntimeError(f"run3g cuda {name}: its records "
-                                       f"differ from {o(ref)}")
-            got = run3g_log(err)
-            if (i64 or wide) and got.get("cdt") != "int64":
-                raise RuntimeError(f"run3g {name}: cdt {got.get('cdt')}")
-            runs[name] = dict(reads=N_DIFF_HUMAN, identical=True,
-                              records=len(lines), seconds=dt, bench=bench,
-                              launches=launches, **got)
+            runs[name] = cuda_run(
+                name, tag, flag, {"BWAMEM_TPU_FORCE_I64": i64} if i64 else {},
+                bench_chunks)
     # the card's busy share: the SE run again in a process of its own,
     # its bench traced by torch.profiler (run3g --profile)
     if bench_chunks:
         argv = [DEVICE, data, str(N_DIFF_HUMAN), "--bench-chunks",
                 str(bench_chunks), "--profile", o("profile")]
         err, dt = run_module(RUN3G, argv, o("cuda_se_profiled.out"))
-        with open(o("cuda_se_profiled.out")) as f:
-            lines = f.read().splitlines(keepends=True)
-        bench = json.loads(lines.pop())
-        if lines != [ln for ln in open(o("run3g_host_se.sam"))
-                     if not ln.startswith("@")]:
-            raise RuntimeError("run3g cuda --profile: its records differ")
+        records, bench = records_match(o("cuda_se_profiled.out"), "se",
+                                       "run3g cuda --profile", bench_chunks)
         runs["se_profiled"] = dict(reads=N_DIFF_HUMAN, identical=True,
-                                   seconds=dt, bench=bench, **run3g_log(err))
+                                   records=records, seconds=dt, bench=bench,
+                                   **run3g_log(err))
+    # the extension rows built on the card: the JAX package turns this
+    # route off past 2^31 doubled bases (a TPU VMEM limit), the port
+    # takes it at every size
+    runs["se_onchip_ext"] = cuda_run("se_onchip_ext", "se", [],
+                                     {"BWAMEM_TPU_ONCHIP_EXT": "1"}, 0,
+                                     build=True)
 
     # the kernels at full width on this index (8,192 distinct reads),
     # each beside phase 2's
     label = f"human_{mbp:g}Mbp" + ("_repeats" if repeats else "")
-    check_kernels(label, fa, os.path.join(data, "kernel", "reads_se.fq"),
-                  rec, main_only=True)
+    kreads = os.path.join(data, "kernel", "reads_se.fq")
+    check_kernels(label, fa, kreads, rec, main_only=True)
+    # the SE run and the kernels at another .sa8 cap: at human scale the
+    # dense sample on the card beside the sparse one
+    if sa8_mb is not None:
+        env = {"BWAMEM_TPU_SA8_MAX_MB": f"{sa8_mb:g}"}
+        name = f"se_sa8_{sa8_mb:g}mb"
+        runs[name] = cuda_run(name, "se", [], env, bench_chunks)
+        with environ(env):
+            want = "8" if dense_sa_serves(fa) else "32"
+            if runs[name].get("sa_intv") != want:
+                raise RuntimeError(f"run3g {name}: sa_intv "
+                                   f"{runs[name].get('sa_intv')}, not {want}")
+            check_kernels(f"{label}_sa8_{sa8_mb:g}mb", fa, kreads, rec,
+                          main_only=True)
 
     def brief(r):
         return r and {k: r[k] for k in (
             "index", "ms", "profiler_ms", "device_ms", "host_ms", "plain_ms",
             "bound_ms", "bound_by", "max_abs_err", "lanes", "keys",
             "live_keys", "longest_walk", "chain_ns_per_step",
-            "chain_floor_ms", "sa_intv") if k in r}
+            "chain_floor_ms", "sa_intv", "sa_bytes") if k in r}
 
     def phase2(name):
         got = [r for r in (rec2 or {}).get(name, ())
                if r.get("bucket") in (None, "L128", "LQ128")]
         return brief(got[-1]) if got else None
     say("human_scale", mbp=mbp, repeats=repeats, data=data,
-        seq_len=seq_len, data_seconds=seconds, runs=runs,
-        kernels={k: {"here": brief(v[-1]), "phase2": phase2(k)}
+        seq_len=seq_len, l_pac=l_pac, past_2_32=seq_len > 1 << 32,
+        data_seconds=seconds, peak_rss_gib=peak, runs=runs,
+        kernels={k: {"here": [brief(r) for r in v
+                              if r["index"].startswith(label)],
+                     "phase2": phase2(k)}
                  for k, v in rec.items()},
         phase_seconds=time.perf_counter() - t_phase)
 

@@ -121,11 +121,27 @@ def test_forced_int64_matches_unforced(sets, capsys, monkeypatch, pe):
     assert out == unforced == _host_tool(sets["forced"], pe)
 
 
-def test_bench_prints_one_json_line(sets, capsys, monkeypatch):
+@pytest.fixture(scope="module")
+def bench_run(sets):
+    """run3g cpu on 20 reads with a 1-chunk bench, once for the module:
+    (return code, stdout, stderr)."""
+    import contextlib
+    import io
+    from bwamem_tpu_torch import run3g
+    out, err = io.StringIO(), io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, \
+            contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        for k, v in WIDTHS.items():
+            mp.setenv(k, v)
+        rc = run3g.main(["cpu", sets["plain"], "20", "--bench-chunks", "1",
+                         "--bench-rep", "1"])
+    return rc, out.getvalue(), err.getvalue()
+
+
+def test_bench_prints_one_json_line(bench_run):
     """--bench-chunks 1 adds exactly one JSON line after the records,
     with tools/run3g.py's fields, and the bench's stats line on stderr."""
-    rc, out, err = _run3g(["cpu", sets["plain"], "20", "--bench-chunks", "1",
-                           "--bench-rep", "1"], capsys, monkeypatch)
+    rc, out, err = bench_run
     assert rc == 0
     lines = out.splitlines()
     assert len(lines) == 21
@@ -319,3 +335,195 @@ def test_build_rows_at_wide_reference_begins(LQ, LT):
             torch.from_numpy(lquery.astype(np.int32)), LQ, LT)
     for a, b in zip(emulate.build_rows(*args), build_rows_plain(*args)):
         assert torch.equal(a, b)
+
+
+def _sa8_mib(fm, below):
+    """The .sa8 sample's bytes in MiB as a BWAMEM_TPU_SA8_MAX_MB value:
+    exactly, or one byte below."""
+    return repr((fm.sa8.nbytes - below) / (1 << 20))
+
+
+@pytest.mark.parametrize("cap", ["exact", "below", "unset"])
+def test_sa8_cap_matches_jax(sets, monkeypatch, cap):
+    """BWAMEM_TPU_SA8_MAX_MB (float MiB) at the .sa8's own size, one byte
+    below it and unset: the port's from_host takes the sample the JAX
+    package's from_host takes, and its values are the host index's."""
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.ops import fm as tfm
+    from bwamem_tpu.index import load_index as jax_load_index
+    from bwamem_tpu.ops.fm import DeviceFmIndex as JaxDeviceFmIndex
+    prefix = os.path.join(sets["plain"], "genome.fa")
+    fm, _ = load_index(prefix)
+    jfm, _ = jax_load_index(prefix)
+    if cap == "unset":
+        monkeypatch.delenv("BWAMEM_TPU_SA8_MAX_MB", raising=False)
+    else:
+        monkeypatch.setenv("BWAMEM_TPU_SA8_MAX_MB",
+                           _sa8_mib(fm, cap == "below"))
+    d = tfm.DeviceFmIndex.from_host(fm)
+    jd = JaxDeviceFmIndex.from_host(jfm)
+    assert d.sa_intv == jd.sa_intv == (32 if cap == "below" else 8)
+    host = fm.sa8 if d.sa_intv == 8 else fm.sa
+    assert np.array_equal(d.sa.numpy(), host)
+    assert np.array_equal(np.asarray(jd.sa), host)
+    assert tfm.dense_sa_serves(prefix) == (d.sa_intv == 8)
+
+
+def test_run3g_reads_no_sa8_past_the_cap(sets, capsys, monkeypatch):
+    """With the cap one byte below the .sa8, run3g cpu never reads the
+    sample (FmIndex.restore_sa8 is not called), walks the sparse .sa
+    (sa_intv=32) and prints the records run3g host prints; within the cap
+    it reads it."""
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.index.fmindex import FmIndex
+    fm, _ = load_index(os.path.join(sets["plain"], "genome.fa"))
+    calls = []
+    restore = FmIndex.restore_sa8
+
+    def spy(self, path):
+        calls.append(path)
+        return restore(self, path)
+    monkeypatch.setattr(FmIndex, "restore_sa8", spy)
+    _, want, _ = _run3g(["host", sets["plain"], "50"], capsys, monkeypatch)
+    assert calls == []
+    rc, out, err = _run3g(["cpu", sets["plain"], "50"], capsys, monkeypatch,
+                          {"BWAMEM_TPU_SA8_MAX_MB": _sa8_mib(fm, 1)})
+    assert rc == 0 and out == want and out.count("\n") == 50
+    assert "cdt=int32 sa_intv=32 " in err and calls == []
+    rc, out, err = _run3g(["cpu", sets["plain"], "50"], capsys, monkeypatch,
+                          {"BWAMEM_TPU_SA8_MAX_MB": _sa8_mib(fm, 0)})
+    assert rc == 0 and out == want and "cdt=int32 sa_intv=8 " in err
+    assert len(calls) == 1 and calls[0].endswith("genome.fa.sa8")
+
+
+def test_sa8_nbytes_from_the_header(sets, tmp_path):
+    """sa8_nbytes: the loaded sample's bytes from the file's header, None
+    without a file or with a short one."""
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.index.fmindex import sa8_nbytes
+    prefix = os.path.join(sets["plain"], "genome.fa")
+    fm, _ = load_index(prefix)
+    assert sa8_nbytes(prefix + ".sa8") == fm.sa8.nbytes
+    assert sa8_nbytes(str(tmp_path / "none.sa8")) is None
+    (tmp_path / "short.sa8").write_bytes(b"\0" * 12)
+    assert sa8_nbytes(str(tmp_path / "short.sa8")) is None
+
+
+def _wide_bntseq(mod, l_pac, anns, ambs, pac):
+    """A BntSeq of the module mod (the port's or the JAX package's)."""
+    return mod.BntSeq(l_pac=l_pac, seed=11, pac=pac,
+                      anns=[mod.ContigAnn(off, ln, 0, 0, f"c{i}", "")
+                            for i, (off, ln) in enumerate(anns)],
+                      ambs=[mod.AmbHole(off, ln, "N") for off, ln in ambs])
+
+
+def test_bntseq_coordinates_past_2_32():
+    """The port's bntseq coordinate functions against the JAX package's
+    on a 3.1 G base reference (human_g1k_v37's size: forward positions
+    past 2^31, doubled ones past 2^32) of 7 contigs with ambiguity holes
+    on both sides of 2^31: depos on both strands, pos2rid, cnt_ambi,
+    get_seq (both strands and a window bridging them) and pac_get.  The
+    pac is allocated lazily; random bytes are written only where the
+    windows read."""
+    from bwamem_tpu_torch.index import bntseq as tbs
+    from bwamem_tpu.index import bntseq as jbs
+    l_pac = 3_101_804_739
+    rng = np.random.default_rng(31)
+    cuts = np.sort(rng.choice(np.arange(1, l_pac >> 20), 6, replace=False))
+    offs = np.concatenate([[0], cuts << 20, [l_pac]])
+    anns = [(int(a), int(b - a)) for a, b in zip(offs[:-1], offs[1:])]
+    holes = np.sort(np.concatenate([
+        rng.integers(0, l_pac - 100, 40),
+        rng.integers((1 << 31) - 5000, (1 << 31) + 5000, 8)]))
+    ambs = [(int(h), int(rng.integers(1, 60))) for h in holes]
+    ambs = [a for a, b in zip(ambs, ambs[1:] + [(l_pac, 0)])
+            if a[0] + a[1] < b[0]]
+    pac = np.zeros((l_pac + 3) // 4, np.uint8)
+    port = _wide_bntseq(tbs, l_pac, anns, ambs, pac)
+    jax = _wide_bntseq(jbs, l_pac, anns, ambs, pac)
+
+    def fill(beg, end):
+        """Random bytes in the pac where get_seq reads [beg, end) of the
+        doubled reference (on either strand)."""
+        lo, hi = sorted((beg, end))
+        for a, b in ((lo, hi), (2 * l_pac - hi, 2 * l_pac - lo)):
+            a, b = max(a, 0) >> 2, (min(b, l_pac) >> 2) + 1
+            if a < b:
+                pac[a:b] = rng.integers(0, 256, b - a)
+    edges = [1 << 31, (1 << 32) - l_pac, l_pac, (1 << 32), 2 * l_pac - 200]
+    pos = np.concatenate([rng.integers(0, 2 * l_pac, 200),
+                          [e + d for e in edges for d in (-150, -1, 0, 1)],
+                          [o + d for o, _ in anns[1:] for d in (-1, 0)],
+                          [o + d for o, _ in ambs[:12] for d in (-3, 0, 2)]])
+    pos = [int(p) for p in pos if 0 <= p < 2 * l_pac - 200]
+    assert max(pos) > 1 << 32 and any(
+        (1 << 31) < p < l_pac for p in pos)
+    for p in pos:
+        assert port.depos(p) == jax.depos(p)
+        pf, _ = port.depos(p)
+        assert port.pos2rid(pf) == jax.pos2rid(pf)
+        for ln in (1, 101, 5000):
+            assert port.cnt_ambi(pf, ln) == jax.cnt_ambi(pf, ln)
+        for beg, end in ((p, p + 151), (p + 151, p), (p - 3, p + 3)):
+            fill(beg, end)
+            got = tbs.get_seq(l_pac, pac, beg, end)
+            assert np.array_equal(got, jbs.get_seq(l_pac, pac, beg, end))
+            assert len(got) in (0, abs(end - beg))
+    keys = np.asarray([port.depos(p)[0] for p in pos])
+    assert np.array_equal(tbs.pac_get(pac, keys), jbs.pac_get(pac, keys))
+    assert len(tbs.get_seq(l_pac, pac, l_pac - 5, l_pac + 5)) == 0
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports the standard library only
+    at its top)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_run3g_log_reads_every_line(sets, bench_run):
+    """chip_smoke.py's run3g_log on run3g cpu's stderr (a 1-chunk bench)
+    and on the lines of a card's run at 3.1 Gbp: load and engine-up
+    seconds, seq_len (past 2^32 there), cdt, sa_intv, the tables' bytes,
+    each phase's seconds, the stats and stages lines, the busy share."""
+    smoke = _chip_smoke()
+    from bwamem_tpu_torch.index import load_index
+    fm, _ = load_index(os.path.join(sets["plain"], "genome.fa"))
+    rc, _, err = bench_run
+    got = smoke.run3g_log(err)
+    assert rc == 0 and got["seq_len"] == fm.seq_len
+    assert got["cdt"] == "int32" and got["sa_intv"] == "8"
+    assert got["table_bytes"] == (fm.seq_len + 127) // 128 * 64 \
+        + fm.sa8.nbytes // 2
+    assert got["load_s"] >= 0 and got["engine_up_s"] >= 0
+    assert got["diff_s"] > 0 and got["bench_s"] > 0
+    assert {"stats_diff", "stats_bench", "stages_bench"} <= set(got)
+    card = smoke.run3g_log(
+        "[run3g] index loaded in 14.07 s (seq_len=6200000000)\n"
+        "[run3g] engine up in 3.91 s on cuda:0; cdt=int64 sa_intv=32 "
+        "table_bytes=3100000000 occ + 1550000008 sa\n"
+        "[run3g] bench device busy: 0.051000 s of 2.040000 s "
+        "(9120 device events)\n")
+    assert card == {"load_s": 14.07, "seq_len": 6200000000,
+                    "engine_up_s": 3.91, "cdt": "int64", "sa_intv": "32",
+                    "table_bytes": 4650000008, "device_busy_s": 0.051,
+                    "device_events": 9120,
+                    "device_busy_share": 0.051 / 2.04}
+
+
+def test_run_peak_reads_the_childs_own_peak():
+    """chip_smoke.py's run_peak: a child's seconds and its own peak RSS
+    (its 64 MiB array counted, not the 320 MiB this process holds while
+    it runs), and a failing child raises."""
+    smoke = _chip_smoke()
+    held = np.ones(320 << 20, np.uint8)
+    dt, peak = smoke.run_peak(
+        ["-c", "import time, numpy as np; a = np.ones(1 << 26, np.uint8); "
+         "time.sleep(0.5)"], dict(os.environ))
+    assert held.all() and dt > 0 and (1 << 26) < peak < (256 << 20)
+    with pytest.raises(subprocess.CalledProcessError):
+        smoke.run_peak(["-c", "raise SystemExit(3)"], dict(os.environ))
